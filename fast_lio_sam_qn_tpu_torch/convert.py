@@ -1,0 +1,43 @@
+"""Carry state across from numpy: point clouds, masks, poses and the
+keyframe store.
+
+The system has no learned weights; its state is clouds, poses and the
+keyframe store.  Both packages accept numpy arrays, so a test (or a
+session moved from the JAX package) feeds the same numpy state to both.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.keyframes import KeyframeStore
+
+
+def tensors_from_numpy(*arrays, device: torch.device | str):
+    """numpy arrays -> tensors on ``device``: floats become float32, bools
+    stay bool, integers become int32 (the JAX package's dtypes)."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        if a.dtype == np.bool_:
+            dt = torch.bool
+        elif np.issubdtype(a.dtype, np.integer):
+            dt = torch.int32
+        elif np.issubdtype(a.dtype, np.floating):
+            dt = torch.float32
+        else:
+            raise TypeError(f"unsupported dtype {a.dtype}")
+        # a copy: arrays read back from JAX are read-only
+        out.append(torch.tensor(a, dtype=dt, device=device))
+    return tuple(out)
+
+
+def keyframe_store_from_numpy(clouds, cloud_masks, intensities, poses,
+                              poses_corrected, timestamps, count,
+                              device: torch.device | str) -> KeyframeStore:
+    """The fields of ``fast_lio_sam_qn_tpu.models.keyframes.KeyframeStore``
+    as numpy arrays (``count`` a scalar) -> the port's store on
+    ``device``."""
+    return KeyframeStore(*tensors_from_numpy(
+        clouds, cloud_masks, intensities, poses, poses_corrected, timestamps,
+        np.int32(count), device=device))

@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, into ``build/kernels/`` beside the package, and is keyed
+on a hash of the sources and flags, so a stale library is never loaded.
+Loading needs a CUDA device: without one it raises.  There is no fallback
+here; CPU tensors never reach this module (the wrappers route them to their
+plain PyTorch versions before asking for the library).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as void*, sizes as int
+_SIGNATURES = {
+    "flsq_knn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "flsq_knn_banded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "flsq_fpfh_moments": (_P, _P, _P, _I, _F, _F, _P, _P),
+    "flsq_fpfh_spfh": (_P, _P, _P, _P, _P, _I, _F, _P, _P),
+    "flsq_fpfh_agg": (_P, _P, _P, _P, _I, _F, _P, _P),
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libflsq_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if it is missing; returns (path, seconds spent).
+    The compiler's output, register and shared-memory use included, is kept
+    beside the library as ``<name>.log``."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, seconds
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first call.  Raises without a CUDA
+    device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; none is "
+                           "available")
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_status(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{status}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+            device: torch.device) -> None:
+    """Validate a kernel operand before its pointer is passed to C."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

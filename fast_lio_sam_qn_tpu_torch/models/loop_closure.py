@@ -1,0 +1,230 @@
+"""Loop-closure module — candidate search + two-stage registration; port of
+fast_lio_sam_qn_tpu/models/loop_closure.py (single-candidate path).
+
+- ``fetch_closest_keyframe_idx``: masked argmin over keyframe positions
+  (within the loop radius, older than the time gap, the query excluded).
+- ``set_src_and_dst_cloud``: scan and submap modes, voxelized clouds.
+- ``icp_alignment``: GICP, accepted iff converged, fitness below the
+  threshold and (by default) not translation-degenerate.
+- ``coarse_to_fine_alignment``: streaming radius-FPFH -> Quatro -> GICP on
+  the coarse-aligned source, final = fine @ coarse.
+- ``fetch_and_perform``: one loop tick — candidate fetch, registration when
+  there is a candidate, and the graph measurement.
+
+The reference fuses a tick into one jitted program with ``lax.cond``; here
+the tick reads the candidate index back once and branches in Python.  The
+batched and sharded registration paths are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fast_lio_sam_qn_tpu.utils.config import LoopClosureConfig
+
+from ..ops import fpfh, fpfh_stream, gicp, quatro, se3, voxel
+from .keyframes import KeyframeStore
+
+
+class RegistrationOutput(NamedTuple):
+    pose_between: torch.Tensor  # (4, 4) world-frame correction src -> dst
+    score: torch.Tensor         # GICP fitness
+    is_valid: torch.Tensor      # bool
+    is_converged: torch.Tensor  # bool
+    closest_idx: torch.Tensor   # int32 (-1 if none)
+
+
+def fetch_closest_keyframe_idx(store: KeyframeStore, query_pose, query_time,
+                               radius: float, timediff: float):
+    """Index (0-d int32) of the closest keyframe that is within ``radius``
+    and older than ``timediff``, excluding the latest keyframe; -1 if
+    none."""
+    dev = store.clouds.device
+    idx = torch.arange(store.capacity, device=dev)
+    active = idx < (store.count - 1)
+    d = torch.linalg.norm(
+        store.poses_corrected[:, :3, 3] - query_pose[:3, 3][None], dim=-1)
+    radius = torch.tensor(radius, dtype=torch.float32, device=dev)
+    old_enough = (query_time - store.timestamps) > timediff
+    ok = active & old_enough & (d < radius)
+    best = torch.argmin(torch.where(ok, d, radius * 3.0))
+    return torch.where(ok[best], best, -1).to(torch.int32)
+
+
+def _accumulate_submap(store: KeyframeStore, center_idx: int,
+                       submap_range: int, out_cap: int, voxel_res: float):
+    """+-submap_range keyframes around center in world frame (corrected
+    poses), voxelized; bounds 0 <= i < count - 1 as in the reference."""
+    dev = store.clouds.device
+    idxs = center_idx + torch.arange(-submap_range, submap_range + 1,
+                                     device=dev)
+    ok = (idxs >= 0) & (idxs < store.count - 1)
+    idxs_c = torch.clamp(idxs, 0, store.capacity - 1)
+    masks = store.cloud_masks[idxs_c] & ok[:, None]
+    world = se3.transform_points(store.clouds[idxs_c],
+                                 store.poses_corrected[idxs_c])
+    w, p, _ = world.shape
+    return voxel.voxel_downsample(world.reshape(w * p, 3),
+                                  masks.reshape(w * p), voxel_res,
+                                  out_cap=out_cap)
+
+
+def _single_frame(store: KeyframeStore, idx: int, out_cap: int,
+                  voxel_res: float):
+    world = se3.transform_points(store.clouds[idx],
+                                 store.poses_corrected[idx])
+    return voxel.voxel_downsample(world, store.cloud_masks[idx], voxel_res,
+                                  out_cap=out_cap)
+
+
+def set_src_and_dst_cloud(store: KeyframeStore, src_idx: int, dst_idx: int,
+                          *, submap_range: int, src_cap: int, dst_cap: int,
+                          voxel_res: float, enable_quatro: bool,
+                          enable_submap_matching: bool):
+    """The reference's four src/dst construction modes: submap/submap, or
+    the query scan against a scan (Quatro on) or a submap (Quatro off)."""
+    if enable_submap_matching:
+        src = _accumulate_submap(store, src_idx, submap_range, src_cap,
+                                 voxel_res)
+        dst = _accumulate_submap(store, dst_idx, submap_range, dst_cap,
+                                 voxel_res)
+    else:
+        src = _single_frame(store, src_idx, src_cap, voxel_res)
+        if enable_quatro:
+            dst = _single_frame(store, dst_idx, dst_cap, voxel_res)
+        else:
+            dst = _accumulate_submap(store, dst_idx, submap_range, dst_cap,
+                                     voxel_res)
+    return src, dst
+
+
+class LoopClosure:
+    """Config plus the registration steps of one loop-closure attempt."""
+
+    def __init__(self, cfg: LoopClosureConfig, src_cap: int = 8192,
+                 dst_cap: int = 16384):
+        if cfg.quatro.fpfh_backend != "stream":
+            raise ValueError("only the streaming FPFH backend is ported "
+                             f"(got fpfh_backend={cfg.quatro.fpfh_backend!r})")
+        self.cfg = cfg
+        self.src_cap = src_cap
+        self.dst_cap = dst_cap
+
+    def fetch_closest_keyframe_idx(self, store, query_pose, query_time):
+        return fetch_closest_keyframe_idx(
+            store, query_pose, query_time, self.cfg.loop_detection_radius,
+            self.cfg.loop_detection_timediff_threshold)
+
+    def icp_alignment(self, src, src_mask, dst, dst_mask, init_T=None,
+                      src_cov=None, dst_cov=None):
+        """GICP; plane covariances from the exact k-NN where not given."""
+        gc = self.cfg.gicp
+        if src_cov is None:
+            src_cov = gicp.plane_covariances(src, src_mask,
+                                             k=gc.correspondences_number)
+        if dst_cov is None:
+            dst_cov = gicp.plane_covariances(dst, dst_mask,
+                                             k=gc.correspondences_number)
+        res = gicp.align(src, src_mask, dst, dst_mask, init_T=init_T,
+                         src_cov=src_cov, dst_cov=dst_cov,
+                         max_iter=gc.max_iter, max_corr_dist=gc.max_corr_dist,
+                         trans_eps=gc.transformation_epsilon)
+        valid = res.converged & (res.fitness < gc.icp_score_thr)
+        if self.cfg.degeneracy_gate:
+            valid = valid & ~res.degenerate
+        return res, valid
+
+    def coarse_to_fine_alignment(self, src, src_mask, dst, dst_mask, src_vp,
+                                 dst_vp):
+        """Quatro coarse -> GICP fine.  The plane covariances come from the
+        FPFH radius moments; the src ones are rotated into the
+        coarse-aligned frame, C' = R C R^T."""
+        qc = self.cfg.quatro
+        ds, fs, (_, nvs, cs) = fpfh_stream.fpfh_radius(
+            src, src_mask, qc.fpfh_normal_radius, qc.fpfh_radius,
+            viewpoint=src_vp, cov_radius=qc.fpfh_cov_radius)
+        dd, fd, (_, nvd, cd) = fpfh_stream.fpfh_radius(
+            dst, dst_mask, qc.fpfh_normal_radius, qc.fpfh_radius,
+            viewpoint=dst_vp, cov_radius=qc.fpfh_cov_radius)
+        fs = fpfh.distinctive(ds, fs, qc.planarity_threshold)
+        fd = fpfh.distinctive(dd, fd, qc.planarity_threshold)
+        if qc.use_optimized_matching:
+            max_corres = qc.max_num_corres
+        else:
+            max_corres = min(src.shape[0], qc.advanced_max_corres)
+        q = quatro.align(
+            src, ds, fs, dst, dd, fd, noise_bound=qc.noise_bound,
+            gnc_factor=qc.rot_gnc_factor, cost_diff_thr=qc.rot_cost_diff_thr,
+            distance_threshold=qc.distance_threshold, max_corres=max_corres,
+            rot_max_iter=qc.rot_max_iter,
+            optimized_matching=qc.use_optimized_matching,
+            estimate_scale=qc.estimating_scale)
+        src_c = se3.transform_points(src, q.transform)
+        # pure rotation for C' = R C R^T (the transform carries s R when
+        # estimating scale)
+        Rq = q.transform[:3, :3] / q.scale
+        src_covs = (torch.einsum("ab,nbc,dc->nad", Rq, cs, Rq), nvs)
+        fine, fine_valid = self.icp_alignment(src_c, src_mask, dst, dst_mask,
+                                              src_cov=src_covs,
+                                              dst_cov=(cd, nvd))
+        # the committed measurement is the rigid projection of the coarse
+        # transform (a no-op unless estimating scale)
+        q_rigid = q.transform.clone()
+        q_rigid[:3, :3] = q.transform[:3, :3] / q.scale
+        final_T = se3.compose(fine.transform, q_rigid)
+        valid = q.converged & fine_valid
+        if qc.estimating_scale:
+            valid = valid & (torch.abs(q.scale - 1.0) <= qc.scale_gate)
+        return final_T, fine.fitness, valid, q
+
+    def perform_loop_closure(self, store: KeyframeStore, query_idx: int,
+                             closest_idx: int) -> RegistrationOutput:
+        """Register the query keyframe against the candidate."""
+        c = self.cfg
+        no_candidate = closest_idx < 0
+        safe_idx = max(closest_idx, 0)
+        (src, src_mask), (dst, dst_mask) = set_src_and_dst_cloud(
+            store, query_idx, safe_idx, submap_range=c.num_submap_keyframes,
+            src_cap=self.src_cap, dst_cap=self.dst_cap,
+            voxel_res=c.voxel_res, enable_quatro=c.enable_quatro,
+            enable_submap_matching=c.enable_submap_matching)
+        if c.enable_quatro:
+            src_vp = store.poses_corrected[query_idx][:3, 3]
+            dst_vp = store.poses_corrected[safe_idx][:3, 3]
+            T, score, valid, q = self.coarse_to_fine_alignment(
+                src, src_mask, dst, dst_mask, src_vp, dst_vp)
+            converged = q.converged
+        else:
+            res, valid = self.icp_alignment(src, src_mask, dst, dst_mask)
+            T, score, converged = res.transform, res.fitness, res.converged
+        dev = T.device
+        return RegistrationOutput(
+            pose_between=T, score=score, is_valid=valid & (not no_candidate),
+            is_converged=converged,
+            closest_idx=torch.tensor(-1 if no_candidate else closest_idx,
+                                     dtype=torch.int32, device=dev))
+
+    def fetch_and_perform(self, store: KeyframeStore, query_idx: int):
+        """One loop-timer tick: candidate fetch, registration if there is a
+        candidate (the reference returns early otherwise), and the graph
+        measurement pose_from.between(pose_to) on the poses the clouds were
+        built with.  Returns (RegistrationOutput, meas (4, 4))."""
+        closest = int(fetch_closest_keyframe_idx(
+            store, store.poses_corrected[query_idx],
+            store.timestamps[query_idx], self.cfg.loop_detection_radius,
+            self.cfg.loop_detection_timediff_threshold))
+        dev = store.clouds.device
+        if closest >= 0:
+            reg = self.perform_loop_closure(store, query_idx, closest)
+        else:
+            false = torch.zeros((), dtype=torch.bool, device=dev)
+            reg = RegistrationOutput(
+                pose_between=torch.eye(4, dtype=torch.float32, device=dev),
+                score=torch.zeros((), dtype=torch.float32, device=dev),
+                is_valid=false, is_converged=false,
+                closest_idx=torch.tensor(-1, dtype=torch.int32, device=dev))
+        pose_from = se3.compose(reg.pose_between,
+                                store.poses_corrected[query_idx])
+        pose_to = store.poses_corrected[max(closest, 0)]
+        return reg, se3.pose_between(pose_from, pose_to)

@@ -1,0 +1,1 @@
+"""Tensor ops of the port; each module mirrors fast_lio_sam_qn_tpu/ops/."""

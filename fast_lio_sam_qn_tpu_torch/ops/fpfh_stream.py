@@ -1,0 +1,343 @@
+"""Streaming radius-FPFH — port of fast_lio_sam_qn_tpu/ops/fpfh_stream.py.
+
+Three dense masked reductions over all (query, point) pairs of one cloud,
+with PCL's radius semantics and no neighbour cap:
+
+1. ``moments``  (kernel K3, csrc/fpfh_moments.cu): count / first / second
+   moments at the normal radius and at the covariance radius.  Normals and
+   the Nano-GICP plane covariances both come from them.
+2. ``spfh``     (kernel K4, csrc/fpfh_spfh.cu): the 3 x 11-bin Darboux
+   histogram of each point.
+3. ``fpfh_agg`` (kernel K5, csrc/fpfh_agg.cu): the 1/d-weighted neighbour
+   sum of SPFH histograms.
+
+Each kernel wrapper takes its plain PyTorch version (``*_plain``, a port of
+the reference's ``_*_xla`` path) for a CPU tensor and launches its kernel
+for a CUDA tensor.  The plain versions use the reference's distance
+expansion d2 = |q|^2 - 2 q.v + |v|^2 in fp32, query block by query block,
+so they track the JAX package on the CPU; the kernels use the same
+expansion on the same |q|^2, |v|^2 operands.  The reference's Morton sort
+only served its bbox prune, which no kernel here does yet, so it is left
+out: results do not depend on point order beyond fp summation order.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import kernels
+from . import linalg3
+from .knn import sq_norms
+
+FPFH_DIM = 33
+_NBINS = 11
+_BIG = 3.4e38
+TQ = 128          # query rows per block of the plain versions
+PLANE_EPS = 1e-3  # gicp.PLANE_EPS
+
+# theta bin edges theta_j = -pi + j 2pi/11 as (cos, sin): the angle of
+# (tx, ty) lies in bin j iff sigma_j >= 0 > sigma_{j+1}, where sigma_j =
+# ty cos(theta_j) - tx sin(theta_j) — the reference's atan2-free binning
+_TH_COS = tuple(math.cos(-math.pi + j * 2 * math.pi / _NBINS)
+                for j in range(_NBINS + 1))
+_TH_SIN = tuple(math.sin(-math.pi + j * 2 * math.pi / _NBINS)
+                for j in range(_NBINS + 1))
+
+
+def _db_norms(points: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """|v|^2 with a +3.4e38 penalty on points that must never qualify."""
+    return sq_norms(points) + torch.where(keep, 0.0, _BIG)
+
+
+def _block_d2(qb: torch.Tensor, points: torch.Tensor, dd: torch.Tensor):
+    cross = qb @ points.T
+    return sq_norms(qb)[:, None] - 2.0 * cross + dd[None, :]
+
+
+def _not_self(start: int, rows: int, n: int, device) -> torch.Tensor:
+    """Pairs that are not the query itself, by index: a d2 threshold would
+    flip on the expansion's ~1e-5 cancellation residue."""
+    qi = torch.arange(start, start + rows, device=device)
+    return qi[:, None] != torch.arange(n, device=device)[None, :]
+
+
+def _check_cloud(name: str, points: torch.Tensor, extra=()) -> None:
+    n = points.shape[0]
+    dev = points.device
+    kernels.require(points, f"{name}: points", torch.float32, (n, 3), dev)
+    for t, label, dt, shape in extra:
+        kernels.require(t, f"{name}: {label}", dt, shape, dev)
+
+
+# ---------------------------------------------------------------------------
+# K3: moments
+# ---------------------------------------------------------------------------
+
+def _features(points: torch.Tensor) -> torch.Tensor:
+    """(N, 10) rows [1, x, y, z, xx, xy, xz, yy, yz, zz]."""
+    return torch.cat([
+        torch.ones_like(points[:, :1]), points,
+        points[:, 0:1] * points, points[:, 1:2] * points[:, 1:],
+        points[:, 2:3] * points[:, 2:]], dim=1)
+
+
+def moments_plain(points, mask, radius: float, cov_radius: float):
+    """(N, 20) radius moments at (radius, cov_radius)."""
+    dd = _db_norms(points, mask)
+    feats = _features(points)
+    out = []
+    for s in range(0, points.shape[0], TQ):
+        d2 = _block_d2(points[s:s + TQ], points, dd)
+        out.append(torch.cat([(d2 <= r * r).to(points.dtype) @ feats
+                              for r in (radius, cov_radius)], dim=-1))
+    return torch.cat(out)
+
+
+def moments(points, mask, radius: float, cov_radius: float):
+    """(N, 20) moments at (radius, cov_radius) — kernel K3 on CUDA."""
+    if points.device.type == "cpu":
+        return moments_plain(points, mask, radius, cov_radius)
+    n = points.shape[0]
+    _check_cloud("moments", points, ((mask, "mask", torch.bool, (n,)),))
+    qq = sq_norms(points)
+    dd = _db_norms(points, mask)
+    out = torch.empty((n, 20), dtype=torch.float32, device=points.device)
+    lib = kernels.load_library()
+    with torch.cuda.device(points.device):
+        status = lib.flsq_fpfh_moments(
+            points.data_ptr(), qq.data_ptr(), dd.data_ptr(), n,
+            radius * radius, cov_radius * cov_radius, out.data_ptr(),
+            kernels.stream(points))
+    kernels.check_status(status, "fpfh moments")
+    moments.launches += 1
+    return out
+
+
+moments.launches = 0
+
+
+def _mom_comps(mom10):
+    """(N, 10) moment columns -> (cnt, mean (N, 3), 6 covariance component
+    tensors (N,)) in struct-of-arrays form."""
+    cnt = mom10[:, 0]
+    safe = torch.clamp(cnt, min=1.0)
+    mean = mom10[:, 1:4] / safe[:, None]
+    mx, my, mz = mean[:, 0], mean[:, 1], mean[:, 2]
+    c00 = mom10[:, 4] / safe - mx * mx
+    c01 = mom10[:, 5] / safe - mx * my
+    c02 = mom10[:, 6] / safe - mx * mz
+    c11 = mom10[:, 7] / safe - my * my
+    c12 = mom10[:, 8] / safe - my * mz
+    c22 = mom10[:, 9] / safe - mz * mz
+    return cnt, mean, (c00, c01, c02, c11, c12, c22)
+
+
+def moments_to_normals_covs(mom, points, mask, viewpoint):
+    """(N, 20) radius moments -> (normals, n_valid, cov_reg, mean).
+
+    Normals: smallest eigenvector of the first moment block, oriented
+    toward ``viewpoint`` (the valid centroid when None).  cov_reg: the
+    Nano-GICP regularized plane covariance V diag(eps, 1, 1) V^T from the
+    second block; identity where the neighbourhood is too small."""
+    cnt, mean, comps = _mom_comps(mom[:, :10])
+    _, evecs = linalg3.eigh3_soa(*comps)
+    n = torch.stack([evecs[0][0], evecs[1][0], evecs[2][0]], dim=-1)
+    if viewpoint is None:
+        viewpoint = torch.sum(points * mask[:, None], 0) / torch.clamp(
+            torch.sum(mask).to(points.dtype), min=1.0)
+    to_view = viewpoint[None, :] - points
+    n = n * torch.where(torch.sum(n * to_view, -1, keepdim=True) < 0,
+                        -1.0, 1.0)
+    n_valid = mask & (cnt >= 3)
+    n = torch.where(n_valid[:, None], n, 0.0)
+    cnt_c, _, comps_c = _mom_comps(mom[:, 10:20])
+    _, vc = linalg3.eigh3_soa(*comps_c)
+    reg = (PLANE_EPS, 1.0, 1.0)
+    cov_ok = n_valid & (cnt_c >= 3)
+    rows = []
+    for i in range(3):
+        row = []
+        for j in range(3):
+            cij = sum(reg[k] * vc[i][k] * vc[j][k] for k in range(3))
+            row.append(torch.where(cov_ok, cij, 1.0 if i == j else 0.0))
+        rows.append(torch.stack(row, dim=-1))
+    cov_reg = torch.stack(rows, dim=-2)
+    return n, n_valid, cov_reg, mean
+
+
+# ---------------------------------------------------------------------------
+# K4: SPFH
+# ---------------------------------------------------------------------------
+
+def _angles(p, u, db, dbn, d2):
+    """Darboux (alpha, phi, ty, tx) for a (B, N) pair block; p, u are
+    (B, 1) columns of query coords / normals, db, dbn (3, N) rows."""
+    px, py, pz = p
+    ux, uy, uz = u
+    vx_, vy_, vz_ = db[0:1], db[1:2], db[2:3]
+    nqx, nqy, nqz = dbn[0:1], dbn[1:2], dbn[2:3]
+    inv_d = torch.rsqrt(torch.clamp(d2, min=1e-12))
+    dx = (vx_ - px) * inv_d
+    dy = (vy_ - py) * inv_d
+    dz = (vz_ - pz) * inv_d
+    cvx = dy * uz - dz * uy
+    cvy = dz * ux - dx * uz
+    cvz = dx * uy - dy * ux
+    cvn = torch.rsqrt(torch.clamp(cvx * cvx + cvy * cvy + cvz * cvz,
+                                  min=1e-18))
+    cvx, cvy, cvz = cvx * cvn, cvy * cvn, cvz * cvn
+    cwx = uy * cvz - uz * cvy
+    cwy = uz * cvx - ux * cvz
+    cwz = ux * cvy - uy * cvx
+    alpha = cvx * nqx + cvy * nqy + cvz * nqz
+    phi = ux * dx + uy * dy + uz * dz
+    ty = cwx * nqx + cwy * nqy + cwz * nqz
+    tx = ux * nqx + uy * nqy + uz * nqz
+    return alpha, phi, ty, tx
+
+
+def _hist33(alpha, phi, ty, tx, w):
+    """(B, 34): 3 x 11 histogram of the weighted pairs plus their count."""
+    cols = []
+    for vals, lo, hi in ((alpha, -1.0, 1.0), (phi, -1.0, 1.0)):
+        b = torch.clamp(((vals - lo) * (_NBINS / (hi - lo))).to(torch.int32),
+                        0, _NBINS - 1)
+        for j in range(_NBINS):
+            cols.append(torch.sum(torch.where(b == j, w, 0.0), dim=1))
+    # degenerate (0, 0) lands in the theta = 0 bin, like atan2(0, 0) = 0
+    tx = tx + 1e-20
+    sig = [ty * _TH_COS[j] - tx * _TH_SIN[j] for j in range(_NBINS + 1)]
+    for j in range(_NBINS):
+        m = (sig[j] >= 0.0) & (sig[j + 1] < 0.0)
+        cols.append(torch.sum(torch.where(m, w, 0.0), dim=1))
+    cols.append(torch.sum(w, dim=1))
+    return torch.stack(cols, dim=1)
+
+
+def spfh_plain(points, mask, normals, n_valid, radius: float):
+    n = points.shape[0]
+    dd = _db_norms(points, mask & n_valid)
+    r2 = radius * radius
+    dbT, dbnT = points.T, normals.T
+    out = []
+    for s in range(0, n, TQ):
+        qb, qnb = points[s:s + TQ], normals[s:s + TQ]
+        d2 = _block_d2(qb, points, dd)
+        w = ((d2 <= r2) & _not_self(s, qb.shape[0], n, points.device)
+             ).to(points.dtype)
+        alpha, phi, ty, tx = _angles(
+            (qb[:, 0:1], qb[:, 1:2], qb[:, 2:3]),
+            (qnb[:, 0:1], qnb[:, 1:2], qnb[:, 2:3]), dbT, dbnT, d2)
+        out.append(_hist33(alpha, phi, ty, tx, w))
+    return torch.cat(out)
+
+
+def spfh(points, mask, normals, n_valid, radius: float):
+    """(N, 34) raw SPFH counts + neighbour count — kernel K4 on CUDA."""
+    if points.device.type == "cpu":
+        return spfh_plain(points, mask, normals, n_valid, radius)
+    n = points.shape[0]
+    _check_cloud("spfh", points, (
+        (mask, "mask", torch.bool, (n,)),
+        (normals, "normals", torch.float32, (n, 3)),
+        (n_valid, "n_valid", torch.bool, (n,))))
+    qq = sq_norms(points)
+    dd = _db_norms(points, mask & n_valid)
+    th = torch.tensor(_TH_COS + _TH_SIN, dtype=torch.float32,
+                      device=points.device)
+    out = torch.empty((n, FPFH_DIM + 1), dtype=torch.float32,
+                      device=points.device)
+    lib = kernels.load_library()
+    with torch.cuda.device(points.device):
+        status = lib.flsq_fpfh_spfh(
+            points.data_ptr(), normals.data_ptr(), qq.data_ptr(),
+            dd.data_ptr(), th.data_ptr(), n, radius * radius,
+            out.data_ptr(), kernels.stream(points))
+    kernels.check_status(status, "fpfh spfh")
+    spfh.launches += 1
+    return out
+
+
+spfh.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: aggregation
+# ---------------------------------------------------------------------------
+
+def fpfh_agg_plain(points, mask, n_valid, spfh_n, radius: float):
+    n = points.shape[0]
+    dd = _db_norms(points, mask & n_valid)
+    r2 = radius * radius
+    out = []
+    for s in range(0, n, TQ):
+        qb = points[s:s + TQ]
+        d2 = _block_d2(qb, points, dd)
+        in_r = (d2 <= r2) & _not_self(s, qb.shape[0], n, points.device)
+        # 1e-12 floor on d2 = the reference's 1e-6 m floor on d
+        w = torch.where(in_r, torch.rsqrt(torch.clamp(d2, min=1e-12)), 0.0)
+        out.append(torch.cat([w @ spfh_n,
+                              torch.sum(in_r, dim=1, dtype=points.dtype
+                                        )[:, None]], dim=-1))
+    return torch.cat(out)
+
+
+def fpfh_agg(points, mask, n_valid, spfh_n, radius: float):
+    """(N, 34): sum of SPFH(v) / d(p, v) over neighbours + their count —
+    kernel K5 on CUDA."""
+    if points.device.type == "cpu":
+        return fpfh_agg_plain(points, mask, n_valid, spfh_n, radius)
+    n = points.shape[0]
+    _check_cloud("fpfh_agg", points, (
+        (mask, "mask", torch.bool, (n,)),
+        (n_valid, "n_valid", torch.bool, (n,)),
+        (spfh_n, "spfh", torch.float32, (n, FPFH_DIM))))
+    qq = sq_norms(points)
+    dd = _db_norms(points, mask & n_valid)
+    out = torch.empty((n, FPFH_DIM + 1), dtype=torch.float32,
+                      device=points.device)
+    lib = kernels.load_library()
+    with torch.cuda.device(points.device):
+        status = lib.flsq_fpfh_agg(
+            points.data_ptr(), qq.data_ptr(), dd.data_ptr(),
+            spfh_n.data_ptr(), n, radius * radius, out.data_ptr(),
+            kernels.stream(points))
+    kernels.check_status(status, "fpfh aggregation")
+    fpfh_agg.launches += 1
+    return out
+
+
+fpfh_agg.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+def fpfh_radius(points, mask, normal_radius: float, feature_radius: float,
+                viewpoint=None, cov_radius: float = 0.6):
+    """Full radius-FPFH descriptor plus the shared surface geometry.
+
+    Returns (desc (N, 33), valid (N,), (normals, n_valid, cov_reg)), where
+    cov_reg are the Nano-GICP regularized plane covariances at cov_radius
+    (see the reference's fpfh_radius for why 0.6 m)."""
+    mom = moments(points, mask, float(normal_radius), float(cov_radius))
+    normals, n_valid, cov_reg, _ = moments_to_normals_covs(
+        mom, points, mask, viewpoint)
+    raw = spfh(points, mask, normals, n_valid, float(feature_radius))
+    cnt = raw[:, FPFH_DIM]
+    spfh_n = (raw[:, :FPFH_DIM] / torch.clamp(cnt, min=1.0)[:, None]
+              ).contiguous()
+    agg = fpfh_agg(points, mask, n_valid, spfh_n, float(feature_radius))
+    cnt_f = agg[:, FPFH_DIM]
+    fp = spfh_n + agg[:, :FPFH_DIM] / torch.clamp(cnt_f, min=1.0)[:, None]
+    blocks = []
+    for s in range(0, FPFH_DIM, _NBINS):
+        blk = fp[:, s:s + _NBINS]
+        blocks.append(100.0 * blk / torch.clamp(
+            torch.sum(blk, -1, keepdim=True), min=1e-9))
+    desc = torch.cat(blocks, dim=-1)
+    valid = n_valid & (cnt >= 3)
+    desc = torch.where(valid[:, None], desc, 0.0)
+    return desc, valid, (normals, n_valid, cov_reg)

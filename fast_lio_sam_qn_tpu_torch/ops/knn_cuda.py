@@ -1,0 +1,195 @@
+"""Kernels K1 and K2 — exact masked kNN on the card (csrc/knn.cu,
+csrc/knn_banded.cu).
+
+Counterpart of fast_lio_sam_qn_tpu/ops/pallas_knn.py:
+
+- K1 (``knn`` / ``nn``, the reference's ``knn_pallas`` / ``nn_pallas`` over
+  ``_knn_kernel``): brute force over every valid db row.
+- K2 (``knn_banded`` / ``nn_banded``, over ``_knn_kernel_banded``): the
+  same result, searching for each query block only the db tiles that the
+  bbox keep rule of ``block_tile_keep`` admits.  Both clouds should be
+  Morton-sorted (``morton_order``) for the prune to skip anything.
+
+The port returns exact (d2, idx) pairs: there is no packed-key quantization
+and so no ``MAX_DB`` cap.  A CPU tensor takes the plain version (ops/knn.py
+``brute_knn``, restricted to the kept tiles for K2); a CUDA tensor launches
+the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .knn import brute_knn, sq_norms
+
+MAX_F = 64
+MAX_K = 32
+MORTON_CELL = 0.75   # locality cell [m], as pallas_knn._MORTON_CELL
+PRUNE_SLACK = 1.03   # as pallas_knn._PRUNE_SLACK
+BAND_BLOCK = 64      # K2's query block (csrc/knn_banded.cu kBlock)
+BAND_TILE = 128      # K2's db tile (csrc/knn_banded.cu kTile)
+BAND_MAX_TILES = 4096
+
+
+def knn(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
+        dbmask: torch.Tensor, k: int):
+    """(dist2 (M, k), idx (M, k) int32, valid (M, k)) — see ops/knn.py."""
+    if queries.device.type == "cpu":
+        return brute_knn(queries, qmask, db, dbmask, k)
+    if queries.device.type != "cuda":
+        raise ValueError(f"knn: unsupported device {queries.device}")
+    m, f = queries.shape
+    n = db.shape[0]
+    if not (1 <= f <= MAX_F and 1 <= k <= MAX_K and m >= 1):
+        raise ValueError(f"knn kernel takes 1 <= F <= {MAX_F}, 1 <= k <= "
+                         f"{MAX_K}, M >= 1; got F={f}, k={k}, M={m}")
+    dev = queries.device
+    for t, name, dt, shape in (
+            (queries, "queries", torch.float32, (m, f)),
+            (qmask, "qmask", torch.bool, (m,)),
+            (db, "db", torch.float32, (n, f)),
+            (dbmask, "dbmask", torch.bool, (n,))):
+        kernels.require(t, name, dt, shape, dev)
+    qq = sq_norms(queries)
+    dd = sq_norms(db)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    lib = kernels.load_library()
+    with torch.cuda.device(dev):
+        status = lib.flsq_knn(
+            queries.data_ptr(), qq.data_ptr(), qmask.data_ptr(),
+            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), m, n, f, k,
+            out_d.data_ptr(), out_i.data_ptr(), kernels.stream(queries))
+    kernels.check_status(status, "knn")
+    knn.launches += 1
+    return out_d, out_i, out_i >= 0
+
+
+knn.launches = 0
+
+
+def nn(queries, qmask, db, dbmask):
+    """Single nearest neighbour: (dist2 (M,), idx (M,), valid (M,))."""
+    d2, idx, valid = knn(queries, qmask, db, dbmask, 1)
+    return d2[:, 0], idx[:, 0], valid[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# K2: the bbox-pruned kNN over Morton-sorted clouds
+# ---------------------------------------------------------------------------
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of int32 x across every third bit."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x30000FF
+    x = (x | (x << 8)) & 0x300F00F
+    x = (x | (x << 4)) & 0x30C30C3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def morton_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Spatial-locality sort order (int64 indices): a Morton code over
+    MORTON_CELL cells, masked points last, ties in index order (the
+    reference's stable ``jnp.argsort``)."""
+    lo = torch.amin(torch.where(mask[:, None], points, torch.inf), dim=0)
+    cell = torch.clamp(((points - lo) / MORTON_CELL).to(torch.int32), 0,
+                       1023)
+    key = (_part1by2(cell[:, 0]) | (_part1by2(cell[:, 1]) << 1)
+           | (_part1by2(cell[:, 2]) << 2))
+    key = torch.where(mask, key, torch.iinfo(torch.int32).max)
+    return torch.argsort(key, stable=True)
+
+
+def tile_bboxes(points: torch.Tensor, valid: torch.Tensor,
+                td: int) -> torch.Tensor:
+    """(n_tiles, 6) per-tile bounds [lo xyz | hi xyz] of the valid points of
+    consecutive tiles of ``td`` rows; an empty tile holds (+inf, -inf)."""
+    n = points.shape[0]
+    pad = -(-n // td) * td - n
+    p = torch.nn.functional.pad(points, (0, 0, 0, pad)).reshape(-1, td, 3)
+    v = torch.nn.functional.pad(valid, (0, pad)).reshape(-1, td, 1)
+    lo = torch.amin(torch.where(v, p, torch.inf), dim=1)
+    hi = torch.amax(torch.where(v, p, -torch.inf), dim=1)
+    return torch.cat([lo, hi], dim=1)
+
+
+def block_tile_keep(q, qmask, db, dbmask, k: int, block: int = BAND_BLOCK,
+                    td: int = BAND_TILE) -> torch.Tensor:
+    """(n_blocks, n_tiles) bool: may db tile t hold one of the k nearest
+    neighbours of some query in block b?  pallas_knn._block_tile_keep's
+    rule: g2(b, t) <= PRUNE_SLACK * (k-th smallest md2(b, .)), with md2 the
+    largest and g2 the smallest squared distance between the two bboxes."""
+    qb = tile_bboxes(q, qmask, block)
+    tb = tile_bboxes(db, dbmask, td)
+    qlo, qhi = qb[:, None, :3], qb[:, None, 3:]
+    tlo, thi = tb[None, :, :3], tb[None, :, 3:]
+    e = torch.maximum(torch.abs(thi - qlo), torch.abs(qhi - tlo))
+    md2 = torch.sum(e * e, dim=-1)
+    gap = torch.clamp(torch.maximum(tlo - qhi, qlo - thi), min=0.0)
+    g2 = torch.sum(gap * gap, dim=-1)
+    n_tiles = md2.shape[1]
+    kth = torch.sort(md2, dim=1).values[:, min(k, n_tiles) - 1]
+    return g2 <= kth[:, None] * PRUNE_SLACK
+
+
+def knn_banded_plain(queries, qmask, db, dbmask, k: int):
+    """K2's plain version: the exact kNN over the pairs whose (query block,
+    db tile) ``block_tile_keep`` admits — equal to ``brute_knn``."""
+    keep = block_tile_keep(queries, qmask, db, dbmask, k)
+    tile_of = torch.arange(db.shape[0], device=db.device) // BAND_TILE
+
+    def pair_ok(start, stop):
+        blk = torch.arange(start, stop, device=db.device) // BAND_BLOCK
+        return keep[blk][:, tile_of]
+
+    return brute_knn(queries, qmask, db, dbmask, k, pair_ok=pair_ok)
+
+
+def knn_banded(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
+               dbmask: torch.Tensor, k: int):
+    """(dist2 (M, k), idx (M, k) int32, valid (M, k)) of 3-d points, equal
+    to ``knn``; fast when both clouds are Morton-sorted.  Ties follow the
+    given db order."""
+    if queries.device.type == "cpu":
+        return knn_banded_plain(queries, qmask, db, dbmask, k)
+    if queries.device.type != "cuda":
+        raise ValueError(f"knn_banded: unsupported device {queries.device}")
+    m = queries.shape[0]
+    n = db.shape[0]
+    n_tiles = -(-n // BAND_TILE)
+    if not (1 <= k <= MAX_K and m >= 1 and n_tiles <= BAND_MAX_TILES):
+        raise ValueError(f"knn_banded kernel takes 1 <= k <= {MAX_K}, M >= 1"
+                         f", N <= {BAND_TILE * BAND_MAX_TILES}; got k={k}, "
+                         f"M={m}, N={n}")
+    dev = queries.device
+    for t, name, dt, shape in (
+            (queries, "queries", torch.float32, (m, 3)),
+            (qmask, "qmask", torch.bool, (m,)),
+            (db, "db", torch.float32, (n, 3)),
+            (dbmask, "dbmask", torch.bool, (n,))):
+        kernels.require(t, name, dt, shape, dev)
+    qq = sq_norms(queries)
+    dd = sq_norms(db)
+    tbox = torch.empty((n_tiles, 6), dtype=torch.float32, device=dev)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    lib = kernels.load_library()
+    with torch.cuda.device(dev):
+        status = lib.flsq_knn_banded(
+            queries.data_ptr(), qq.data_ptr(), qmask.data_ptr(),
+            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), m, n, k,
+            tbox.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            kernels.stream(queries))
+    kernels.check_status(status, "knn_banded")
+    knn_banded.launches += 1
+    return out_d, out_i, out_i >= 0
+
+
+knn_banded.launches = 0
+
+
+def nn_banded(queries, qmask, db, dbmask):
+    """Single nearest neighbour through K2."""
+    d2, idx, valid = knn_banded(queries, qmask, db, dbmask, 1)
+    return d2[:, 0], idx[:, 0], valid[:, 0]

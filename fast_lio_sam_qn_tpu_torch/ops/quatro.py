@@ -1,0 +1,290 @@
+"""Quatro-equivalent robust global registration — port of
+fast_lio_sam_qn_tpu/ops/quatro.py.
+
+FPFH mutual-NN matching (through kernel K1), approximate max-clique
+inliers, GNC-TLS yaw, component-wise translation voting, optional TIM scale
+voting and a reweighted 2D Procrustes refinement.  Scalar parameters become
+0-d fp32 tensors so every derived threshold rounds as in the reference.
+
+Where the reference relies on ``lax.top_k`` / ``argsort`` tie order (index
+order among equal keys), the port sorts stably.  The reference's
+data-dependent loops become Python loops: GNC stops on the same rule with
+one host read per iteration; the sequential greedy clique pass is a loop of
+small device ops (no host reads).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import knn_cuda, se3
+
+
+class QuatroResult(NamedTuple):
+    transform: torch.Tensor    # (4, 4) src -> dst ([s]R | t)
+    converged: torch.Tensor    # bool
+    num_corres: torch.Tensor   # int: matches fed to the solver
+    num_inliers: torch.Tensor  # int: clique size
+    scale: torch.Tensor        # f32: 1.0 unless estimate_scale
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def match_features(src_pts, src_desc, src_valid, dst_pts, dst_desc,
+                   dst_valid, distance_threshold, max_corres: int = 200,
+                   optimized_matching: bool = True):
+    """Mutual-NN feature matching in the reference's two modes: optimized
+    (spatially gated, best ``max_corres``) or advanced (all mutual matches
+    up to the static cap).  Returns (s_pts (C, 3), d_pts (C, 3), valid)."""
+    d2_sd, idx_sd, v_sd = knn_cuda.nn(src_desc, src_valid, dst_desc,
+                                      dst_valid)
+    _, idx_ds, _ = knn_cuda.nn(dst_desc, dst_valid, src_desc, src_valid)
+    n_src = src_desc.shape[0]
+    j_sd = torch.clamp(idx_sd, min=0).long()
+    back = idx_ds[j_sd]
+    mutual = v_sd & (back == torch.arange(n_src, device=back.device))
+    if optimized_matching:
+        spat = torch.linalg.norm(src_pts - dst_pts[j_sd], dim=-1)
+        ok = mutual & (spat <= _f32(distance_threshold, spat))
+    else:
+        ok = mutual
+    score = torch.where(ok, -d2_sd, -torch.inf)
+    if max_corres > n_src:
+        score = torch.cat([score, score.new_full((max_corres - n_src,),
+                                                 -torch.inf)])
+    top_score, top_i = torch.sort(score, descending=True, stable=True)
+    top_score, top_i = top_score[:max_corres], top_i[:max_corres]
+    valid = torch.isfinite(top_score)
+    top_i = torch.clamp(top_i, 0, n_src - 1)
+    return src_pts[top_i], dst_pts[j_sd[top_i]], valid
+
+
+def max_clique_inliers(s_pts, d_pts, valid, noise_bound, iters: int = 64,
+                       greedy_cap: int = 256):
+    """Approximate maximum clique of the compatibility graph
+    | |s_i - s_j| - |d_i - d_j| | <= 2 noise_bound: replicator dynamics,
+    then a greedy pass in descending support order over at most
+    ``greedy_cap`` vertices that keeps a vertex only if it is compatible
+    with every vertex kept before it.  Returns the inlier mask (C,)."""
+    c = s_pts.shape[0]
+    dev = s_pts.device
+    nb = _f32(noise_bound, s_pts)
+    ds = torch.linalg.norm(s_pts[:, None, :] - s_pts[None, :, :], dim=-1)
+    dd = torch.linalg.norm(d_pts[:, None, :] - d_pts[None, :, :], dim=-1)
+    compat = torch.abs(ds - dd) <= 2.0 * nb
+    pair_ok = valid[:, None] & valid[None, :]
+    eye = torch.eye(c, dtype=torch.bool, device=dev)
+    A = (compat & pair_ok & ~eye).to(torch.float32)
+
+    x = valid.to(torch.float32)
+    x = x / torch.clamp(torch.sum(x), min=1.0)
+    for _ in range(iters):
+        num = x * (A @ x)
+        x = num / torch.clamp(torch.sum(num), min=1e-12)
+
+    if c <= greedy_cap:
+        order = torch.sort(-x, stable=True).indices
+        A_bool = A > 0.5
+        kept = torch.zeros(c, dtype=torch.bool, device=dev)
+        for i in range(c):
+            v = order[i]
+            kept[v] = valid[v] & torch.all(torch.where(kept, A_bool[v], True))
+        return kept
+
+    topi = torch.sort(x, descending=True, stable=True).indices[:greedy_cap]
+    A_sub = A[topi][:, topi] > 0.5
+    valid_k = valid[topi]
+    kept_k = torch.zeros(greedy_cap, dtype=torch.bool, device=dev)
+    for i in range(greedy_cap):
+        kept_k[i] = valid_k[i] & torch.all(
+            torch.where(kept_k, A_sub[i], True))
+    out = torch.zeros(c, dtype=torch.bool, device=dev)
+    out[topi] = kept_k
+    return out
+
+
+def _ring_tims(s_pts, d_pts, inliers, strides):
+    """Translation-invariant measurements over the compacted inlier set:
+    inlier k pairs with inlier (k + r) mod c_inl for each stride r.
+    Returns (v, w, m) stacked over strides."""
+    c = s_pts.shape[0]
+    ordi = torch.sort(torch.where(inliers, 0, 1).to(torch.int32),
+                      stable=True).indices
+    sp, dp = s_pts[ordi], d_pts[ordi]
+    c_inl = torch.sum(inliers.to(torch.int32))
+    kk = torch.arange(c, dtype=torch.int32, device=s_pts.device)
+    vs, ws, ms = [], [], []
+    for r in strides:
+        nxt = torch.where(kk + r >= c_inl, kk + r - torch.clamp(c_inl, min=1),
+                          kk + r)
+        nxt = torch.clamp(nxt, 0, c - 1).long()
+        vs.append(sp - sp[nxt])
+        ws.append(dp - dp[nxt])
+        ms.append((kk < c_inl) & (c_inl >= r + 1))
+    return torch.cat(vs), torch.cat(ws), torch.cat(ms)
+
+
+def gnc_rotation_yaw(s_pts, d_pts, inliers, noise_bound, gnc_factor,
+                     cost_diff_thr, max_iter: int = 50):
+    """GNC-TLS yaw from ring TIMs (strides 1 and 2) over the clique.
+    Returns (yaw, inlier_weights, converged)."""
+    v, w, m = _ring_tims(s_pts, d_pts, inliers, (1, 2))
+    v, w = v[:, :2], w[:, :2]
+    m = m & (torch.linalg.norm(v, dim=-1) > 1e-3)
+    nb = _f32(noise_bound, s_pts)
+    gnc_factor = _f32(gnc_factor, s_pts)
+    cost_diff_thr = _f32(cost_diff_thr, s_pts)
+    cbar2 = (2.0 * nb) ** 2
+
+    def yaw_solve(wt):
+        a = torch.sum(wt * (v[:, 0] * w[:, 0] + v[:, 1] * w[:, 1]))
+        b = torch.sum(wt * (v[:, 0] * w[:, 1] - v[:, 1] * w[:, 0]))
+        return torch.atan2(b, a)
+
+    def residual2(yaw):
+        cy, sy = torch.cos(yaw), torch.sin(yaw)
+        rx = cy * v[:, 0] - sy * v[:, 1] - w[:, 0]
+        ry = sy * v[:, 0] + cy * v[:, 1] - w[:, 1]
+        return rx * rx + ry * ry
+
+    mf = m.to(torch.float32)
+    wt = mf
+    yaw = yaw_solve(wt)
+    r2_max = torch.max(torch.where(m, residual2(yaw), 0.0))
+    mu = torch.clamp(cbar2 / torch.clamp(2.0 * r2_max - cbar2, min=1e-9),
+                     min=1e-6)
+    cost_prev = _f32(torch.inf, s_pts)
+    for _ in range(max_iter):
+        r2 = residual2(yaw)
+        ub = (mu + 1.0) / mu * cbar2
+        lb = mu / (mu + 1.0) * cbar2
+        wt = torch.where(
+            r2 >= ub, 0.0,
+            torch.where(r2 <= lb, 1.0,
+                        torch.sqrt(cbar2 * mu * (mu + 1.0)
+                                   / torch.clamp(r2, min=1e-12)) - mu))
+        wt = torch.clamp(wt, 0.0, 1.0) * mf
+        yaw = yaw_solve(wt)
+        cost = torch.sum(wt * torch.minimum(residual2(yaw), cbar2))
+        done = bool(torch.abs(cost - cost_prev) < cost_diff_thr)
+        mu = mu * gnc_factor
+        cost_prev = cost
+        if done:
+            break
+    converged = torch.sum(wt > 0.5) >= 3
+    return yaw, wt, converged
+
+
+def _rotate_yaw(yaw, p):
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([cy * p[..., 0] - sy * p[..., 1],
+                        sy * p[..., 0] + cy * p[..., 1], p[..., 2]], dim=-1)
+
+
+def translation_voting(s_pts, d_pts, inliers, yaw, noise_bound):
+    """Component-wise consensus translation: per axis, the candidate window
+    [t_k - nb, t_k + nb] covering the most candidates, averaged.
+    Returns (t (3,), min votes over the axes)."""
+    cand = d_pts - _rotate_yaw(yaw, s_pts)
+    nb = _f32(noise_bound, s_pts)
+    m = inliers
+
+    def per_axis(vals):
+        within = torch.abs(vals[:, None] - vals[None, :]) <= nb
+        within = within & m[None, :] & m[:, None]
+        counts = torch.sum(within, dim=1)
+        best = torch.argmax(counts)
+        sel = within[best]
+        return (torch.sum(torch.where(sel, vals, 0.0))
+                / torch.clamp(torch.sum(sel), min=1), counts[best])
+
+    tx, cx = per_axis(cand[:, 0])
+    ty, cy = per_axis(cand[:, 1])
+    tz, cz = per_axis(cand[:, 2])
+    return (torch.stack([tx, ty, tz]),
+            torch.minimum(cx, torch.minimum(cy, cz)))
+
+
+def estimate_scale_tims(s_pts, d_pts, inliers, noise_bound):
+    """TLS-style consensus scale over stride-1 ring TIMs: candidates
+    |w_k| / |v_k| with windows 2 nb / |v_k|; the mean of the best
+    pairwise-consensus window, clamped to [0.05, 20].
+    Returns (scale, n_votes)."""
+    v, w, m = _ring_tims(s_pts, d_pts, inliers, (1,))
+    nb = _f32(noise_bound, s_pts)
+    vn = torch.linalg.norm(v, dim=-1)
+    wn = torch.linalg.norm(w, dim=-1)
+    m = m & (vn > 1e-3)
+    ratio = wn / torch.clamp(vn, min=1e-6)
+    alpha = 2.0 * nb / torch.clamp(vn, min=1e-6)
+    within = torch.abs(ratio[:, None] - ratio[None, :]) <= \
+        (alpha[:, None] + alpha[None, :])
+    within = within & m[:, None] & m[None, :]
+    counts = torch.sum(within, dim=1)
+    best = torch.argmax(counts)
+    sel = within[best]
+    n_votes = counts[best]
+    scale = torch.sum(torch.where(sel, ratio, 0.0)) / torch.clamp(
+        torch.sum(sel), min=1)
+    scale = torch.clamp(scale, 0.05, 20.0)
+    return torch.where(n_votes >= 2, scale, 1.0), n_votes
+
+
+def refine_yaw_translation(s_pts, d_pts, inliers, yaw0, t0, noise_bound,
+                           iters: int = 4):
+    """Iterative reweighted 2D Procrustes over the clique pairs within
+    2 noise_bound of the current estimate; keeps the previous estimate when
+    fewer than 3 pairs qualify.  Returns (yaw, t)."""
+    nb = _f32(noise_bound, s_pts)
+    yaw, t = yaw0, t0
+    for _ in range(iters):
+        r = torch.linalg.norm(_rotate_yaw(yaw, s_pts) + t[None] - d_pts,
+                              dim=-1)
+        w = (inliers & (r < 2.0 * nb)).to(torch.float32)
+        wsum = torch.sum(w)
+        enough = wsum >= 3.0
+        wsafe = torch.clamp(wsum, min=1e-6)
+        ms = torch.sum(s_pts * w[:, None], 0) / wsafe
+        md = torch.sum(d_pts * w[:, None], 0) / wsafe
+        sc = s_pts - ms
+        dc = d_pts - md
+        a = torch.sum(w * (sc[:, 0] * dc[:, 0] + sc[:, 1] * dc[:, 1]))
+        b = torch.sum(w * (sc[:, 0] * dc[:, 1] - sc[:, 1] * dc[:, 0]))
+        yaw_new = torch.atan2(b, a)
+        t_new = md - _rotate_yaw(yaw_new, ms)
+        yaw = torch.where(enough, yaw_new, yaw)
+        t = torch.where(enough, t_new, t)
+    return yaw, t
+
+
+def align(src_pts, src_desc, src_valid, dst_pts, dst_desc, dst_valid, *,
+          noise_bound, gnc_factor, cost_diff_thr, distance_threshold,
+          max_corres: int = 200, rot_max_iter: int = 50,
+          optimized_matching: bool = True,
+          estimate_scale: bool = False) -> QuatroResult:
+    """Full Quatro pipeline on precomputed FPFH descriptors."""
+    s, d, valid = match_features(
+        src_pts, src_desc, src_valid, dst_pts, dst_desc, dst_valid,
+        distance_threshold, max_corres=max_corres,
+        optimized_matching=optimized_matching)
+    if estimate_scale:
+        # scale first, over all matches; the clique runs de-scaled
+        scale, _ = estimate_scale_tims(s, d, valid, noise_bound)
+        s_eff = s * scale
+    else:
+        scale = _f32(1.0, s)
+        s_eff = s
+    inl = max_clique_inliers(s_eff, d, valid, noise_bound)
+    yaw, _, rot_ok = gnc_rotation_yaw(s_eff, d, inl, noise_bound, gnc_factor,
+                                      cost_diff_thr, max_iter=rot_max_iter)
+    t, t_votes = translation_voting(s_eff, d, inl, yaw, noise_bound)
+    yaw, t = refine_yaw_translation(s_eff, d, inl, yaw, t, noise_bound)
+    R = se3.so3_exp(torch.tensor([0.0, 0.0, 1.0], device=s.device) * yaw)
+    T = se3.make_pose(R * scale, t)
+    n_inl = torch.sum(inl)
+    converged = rot_ok & (n_inl >= 3) & (t_votes >= 2)
+    return QuatroResult(T, converged, torch.sum(valid),
+                        n_inl.to(torch.int32), scale)

@@ -1,0 +1,169 @@
+"""SE(3)/SO(3) utilities on tensors — the slice of
+fast_lio_sam_qn_tpu/ops/se3.py that loop closure uses.
+
+Same conventions as the JAX module: 4x4 homogeneous poses, tangent vectors
+ordered [rx, ry, rz, tx, ty, tz], every function broadcasts over leading
+batch dimensions.  Matmuls are plain fp32 (TF32 is off package-wide).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-8
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [w]x from (..., 3)."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zeros = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([zeros, -wz, wy], dim=-1),
+        torch.stack([wz, zeros, -wx], dim=-1),
+        torch.stack([-wy, wx, zeros], dim=-1),
+    ], dim=-2)
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _eye3_like(W: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula, safe near zero. (..., 3) -> (..., 3, 3)."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)[..., None]
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _EPS
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    return _eye3_like(W) + a * W + b * W2
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map (..., 3, 3) -> (..., 3); safe near identity and near pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w_skew = vee(R - R.transpose(-1, -2)) * 0.5
+    sin_theta = torch.linalg.norm(w_skew, dim=-1)
+    theta = torch.atan2(sin_theta, cos_theta)
+    th = theta[..., None]
+    scale = torch.where(th < 1e-4, 1.0 + th ** 2 / 6.0,
+                        th / torch.clamp(sin_theta[..., None], min=_EPS))
+    w_generic = w_skew * scale
+    # near-pi branch: the axis from the diagonal of (R + I) / 2, signs
+    # fixed from the off-diagonals relative to the largest component
+    B = (R + _eye3_like(R)) * 0.5
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp(diag, min=0.0))
+    k = torch.argmax(diag, dim=-1)
+
+    def sgn(x):
+        return torch.where(x < 0, -1.0, 1.0).to(R.dtype)
+
+    one = torch.ones_like(trace)
+    cand0 = axis * torch.stack([one, sgn(B[..., 1, 0]), sgn(B[..., 2, 0])], -1)
+    cand1 = axis * torch.stack([sgn(B[..., 0, 1]), one, sgn(B[..., 2, 1])], -1)
+    cand2 = axis * torch.stack([sgn(B[..., 0, 2]), sgn(B[..., 1, 2]), one], -1)
+    kk = k[..., None]
+    fixed = torch.where(kk == 0, cand0, torch.where(kk == 1, cand1, cand2))
+    w_pi = fixed * th
+    near_pi = (math.pi - theta)[..., None] < 1e-3
+    return torch.where(near_pi, w_pi, w_generic)
+
+
+def _left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)[..., None]
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _EPS
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    return _eye3_like(W) + b * W + c * W2
+
+
+def _left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)[..., None]
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _EPS
+    half = theta * 0.5
+    cot = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half)
+         / torch.clamp(torch.sin(half), min=_EPS)) / theta2)
+    return _eye3_like(W) - 0.5 * W + cot * W2
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Exp map (..., 6) [w, v] -> (..., 4, 4)."""
+    w, v = xi[..., :3], xi[..., 3:]
+    R = so3_exp(w)
+    t = (_left_jacobian(w) @ v[..., None])[..., 0]
+    return make_pose(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """Log map (..., 4, 4) -> (..., 6) [w, v]."""
+    R, t = split_pose(T)
+    w = so3_log(R)
+    v = (_left_jacobian_inv(w) @ t[..., None])[..., 0]
+    return torch.cat([w, v], dim=-1)
+
+
+def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3), (..., 3) -> (..., 4, 4)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def split_pose(T: torch.Tensor):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def pose_inverse(T: torch.Tensor) -> torch.Tensor:
+    R, t = split_pose(T)
+    Rt = R.transpose(-1, -2)
+    return make_pose(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def orthonormalize3(R: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """Project a near-rotation back onto SO(3) by Newton iteration for the
+    orthogonal polar factor, X <- X (3I - X^T X) / 2 (see the JAX
+    module's docstring for why rotation chains need it)."""
+    eye = _eye3_like(R)
+    for _ in range(iters):
+        R = 0.5 * (R @ (3.0 * eye - R.transpose(-1, -2) @ R))
+    return R
+
+
+def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """Pose composition Ta @ Tb."""
+    return Ta @ Tb
+
+
+def pose_between(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """a.between(b) = a^-1 @ b (GTSAM semantics)."""
+    return pose_inverse(Ta) @ Tb
+
+
+def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to (..., N, 3)."""
+    R, t = split_pose(T)
+    return points @ R.transpose(-1, -2) + t[..., None, :]

@@ -1,0 +1,142 @@
+"""Package-level contracts of the PyTorch port: it imports no JAX (the
+machine with the card has none), it is lint-clean, and without a CUDA
+device its kernel library refuses to load instead of falling back."""
+import ast
+import glob
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fast_lio_sam_qn_tpu_torch
+from fast_lio_sam_qn_tpu.tools.lint import lint_paths
+from fast_lio_sam_qn_tpu_torch import kernels
+from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream, knn_cuda
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "fast_lio_sam_qn_tpu_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+# host-only modules of the JAX package that the port shares (they import
+# no JAX themselves)
+SHARED = {"fast_lio_sam_qn_tpu.utils.sim", "fast_lio_sam_qn_tpu.utils.config",
+          "fast_lio_sam_qn_tpu.configs.presets"}
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        fast_lio_sam_qn_tpu_torch.__path__, "fast_lio_sam_qn_tpu_torch."))
+
+
+def _imported_names(path):
+    """Every module named by an import statement in ``path``, at any
+    depth (chip_smoke.py imports inside its functions)."""
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port, and every JAX-package module
+    it shares, leaves ``jax`` out of sys.modules (in a fresh process)."""
+    mods = _port_modules() + sorted(SHARED)
+    assert "fast_lio_sam_qn_tpu_torch.models.loop_closure" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_name_no_jax_module():
+    """The port's sources and chip_smoke.py import nothing of JAX, and of
+    the JAX package only the shared host modules."""
+    files = glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
+    assert len(files) >= 14
+    for path in files + [SMOKE]:
+        for name in _imported_names(path):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib"), (path, name)
+            if root == "fast_lio_sam_qn_tpu":
+                assert any(name == s or name.startswith(s + ".") or
+                           s.startswith(name + ".") for s in SHARED), (
+                    path, name)
+
+
+def test_port_is_lint_clean():
+    csrc = sorted(glob.glob(os.path.join(PKG, "csrc", "*")))
+    assert len(csrc) == 6
+    errors = lint_paths([PKG, SMOKE] + csrc)
+    assert not errors, "\n".join(errors)
+
+
+def test_kernel_library_needs_a_cuda_device(monkeypatch):
+    """No stub and no plain fallback: loading raises without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kernels.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        kernels.load_library()
+    kernels.load_library.cache_clear()
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrappers never touch the kernel library and
+    never count a launch."""
+    counters = (knn_cuda.knn, knn_cuda.knn_banded, fpfh_stream.moments,
+                fpfh_stream.spfh, fpfh_stream.fpfh_agg)
+    before = [c.launches for c in counters]
+    pts = torch.rand(40, 3)
+    mask = torch.ones(40, dtype=torch.bool)
+    knn_cuda.knn(pts, mask, pts, mask, 3)
+    knn_cuda.knn_banded(pts, mask, pts, mask, 3)
+    mom = fpfh_stream.moments(pts, mask, 0.9, 0.6)
+    nrm, nv, _, _ = fpfh_stream.moments_to_normals_covs(mom, pts, mask, None)
+    raw = fpfh_stream.spfh(pts, mask, nrm, nv, 1.5)
+    fpfh_stream.fpfh_agg(pts, mask, nv, raw[:, :33].contiguous(), 1.5)
+    assert [c.launches for c in counters] == before
+
+
+def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
+    """The build is keyed on a hash of the sources: an edited kernel gets a
+    new library name, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(os.path.join(PKG, "csrc"), csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = kernels.library_path()
+    with open(csrc / "knn.cu", "a", encoding="utf-8") as fh:
+        fh.write("// edited\n")
+    assert kernels.library_path() != before
+    assert kernels.library_path().parent == kernels.BUILD_DIR
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_the_card(tmp_path, alone):
+    """Without CUDA (and, alone in a directory, without the package)
+    chip_smoke.py exits non-zero and prints no result line."""
+    if alone:
+        script = tmp_path / "chip_smoke.py"
+        shutil.copy(SMOKE, script)
+        cwd, env = tmp_path, dict(os.environ, PYTHONPATH="")
+    else:
+        script, cwd, env = SMOKE, REPO, dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
