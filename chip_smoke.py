@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's loop-closure attempt on one CUDA card.
+"""Drive the PyTorch port's loop-closure attempt and its pose-graph pipeline
+on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -18,9 +19,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    modes and at the pipeline's capacities, with every launch counter reset
    just before and read just after; each run must find keyframe 0, converge,
    pass the ground-truth gate (< 6 cm, < 0.01 rad) and repeat bit-identically;
-5. times every kernel and its plain version, and one whole attempt per
-   mode, with CUDA events (median of 10 calls);
-6. prints the kernel table as one JSON line, then the result line.
+5. holds every batched kernel (K1, K2 and K3-K5 over a batch of clouds,
+   the batch on the grid's y axis) on jittered, differently masked lanes of
+   the bench clouds against its plain batched version and, bit for bit,
+   against the single-cloud kernel on each lane: B = 3 lanes at the bench's
+   padding, and at the pipeline's padding as many lanes as the pipeline's
+   batched tick runs (``loop_batch = 4``); K2 batched must also equal K1
+   batched bit for bit on Morton-sorted lanes;
+6. drives the pipeline, ``FastLioSamQnPipeline(cfg).feed(...)``, over a
+   simulated revisiting run at full width (16,384-point scans, default
+   capacities, ``loop_batch = 4``) with every launch counter reset just
+   before and read just after: at least 3 ticks register 2 or more
+   candidate lanes in one batched registration, which launches only the
+   batched kernels; every keyframe stamped before the last tick is
+   processed; a loop is accepted and committed; the corrected ATE beats
+   the drifted odometry's and is below 0.5 m;
+7. re-registers each candidate lane of one batched tick alone
+   (``perform_loop_closure``) on the same store: the same decisions, the
+   pose within 1 mm / 1e-3 rad; the batched tick and a pose-graph solve
+   repeat bit for bit;
+8. times every kernel and its plain version, one whole attempt per mode,
+   the batched tick against single ticks on the same candidates, the
+   pose-graph solve at full capacity and the pipeline's feeds, with CUDA
+   events (median of 10 calls) or the host clock where a host read ends
+   the call;
+9. prints the kernel table as one JSON line, the card, then the result
+   line.
 """
 from __future__ import annotations
 
@@ -33,6 +57,8 @@ import numpy as np
 
 GATE_T, GATE_R = 0.06, 0.01
 REPO = "fast_lio_sam_qn_tpu_torch"
+LANES = 3                   # batched parity at the bench caps
+PIPE_SCANS, PIPE_POINTS = 160, 16384
 
 
 def log(msg: str) -> None:
@@ -197,6 +223,145 @@ def kernel_parity(store, src_cap, dst_cap, errs):
                                                       val_d)
 
 
+def jittered_lanes(p, m, lanes, seed):
+    """``lanes`` copies of one padded cloud: lane i moves every valid point
+    by N(0, (0.01 i m)^2) per axis and drops 10 i % of them."""
+    import torch
+
+    g = torch.Generator(device=p.device).manual_seed(seed)
+    ps, ms = [], []
+    for i in range(lanes):
+        noise = torch.randn(p.shape, generator=g, device=p.device) * 0.01 * i
+        keep = torch.rand(m.shape, generator=g, device=p.device) >= 0.1 * i
+        ps.append(torch.where(m[:, None], p + noise, p))
+        ms.append(m & keep)
+    return torch.stack(ps).contiguous(), torch.stack(ms)
+
+
+def same_lanes(name, batched, single_fn):
+    """Every lane of a batched kernel's output equals the single-cloud
+    kernel on that lane, bit for bit."""
+    import torch
+
+    if isinstance(batched, torch.Tensor):
+        batched = (batched,)
+    for i in range(batched[0].shape[0]):
+        one = single_fn(i)
+        if isinstance(one, torch.Tensor):
+            one = (one,)
+        if not all(torch.equal(b[i], o) for b, o in zip(batched, one)):
+            raise AssertionError(f"{name}: lane {i} differs from the "
+                                 f"single-cloud kernel")
+
+
+def lane_view(out, i):
+    return lambda *args: tuple(o[i] for o in out)
+
+
+def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES):
+    """Every batched kernel on ``lanes`` jittered lanes of the bench clouds
+    padded to (src_cap, dst_cap): against its plain batched version lane by
+    lane (the single-cloud tolerances and boundary rules) and against the
+    single-cloud kernel (bit for bit); K2 batched against K1 batched bit
+    for bit on Morton-sorted lanes.  Returns inputs for the timings."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda, se3
+    from fast_lio_sam_qn_tpu_torch.parity import (radius_boundary_rows,
+                                                  spfh_rows_explained)
+
+    caps = f"B={lanes} @{src_cap}/{dst_cap}"
+    src, sm = _single_frame(store, 1, src_cap, 0.3)
+    dst, dm = _single_frame(store, 0, dst_cap, 0.3)
+    clouds = {}
+    for tag, p, m, k, seed in (("src", src, sm, 1, 11), ("dst", dst, dm, 0,
+                                                         12)):
+        P, M = jittered_lanes(p, m, lanes, seed)
+        vp = store.poses_corrected[k][:3, 3].expand(lanes, 3).contiguous()
+        mom_k = fs.moments_batched(P, M, 0.9, 0.6)
+        mom_p = fs.moments_batched_plain(P, M, 0.9, 0.6)
+        same_lanes(f"K3 batched {tag}{caps}", mom_k,
+                   lambda i: fs.moments(P[i], M[i], 0.9, 0.6))
+        nrm, nv = [], []
+        for i in range(lanes):
+            errs["moments_b"] = max(errs["moments_b"], check_rows(
+                f"K3 batched {tag} lane {i} {caps}", mom_k[i], mom_p[i],
+                1e-3, 1e-5, lambda r: radius_boundary_rows(
+                    P[i], M[i], r, (0.9, 0.6))))
+            n_, v_, _, _ = fs.moments_to_normals_covs(mom_p[i], P[i], M[i],
+                                                      vp[i])
+            nrm.append(n_)
+            nv.append(v_)
+        nrm, nv = torch.stack(nrm).contiguous(), torch.stack(nv)
+        sp_k = fs.spfh_batched(P, M, nrm, nv, 1.5)
+        sp_p = fs.spfh_batched_plain(P, M, nrm, nv, 1.5)
+        same_lanes(f"K4 batched {tag}{caps}", sp_k,
+                   lambda i: fs.spfh(P[i], M[i], nrm[i], nv[i], 1.5))
+        spn = (sp_p[..., :33] / torch.clamp(sp_p[..., 33:], min=1.0)
+               ).contiguous()
+        ag_k = fs.fpfh_agg_batched(P, M, nv, spn, 1.5)
+        ag_p = fs.fpfh_agg_batched_plain(P, M, nv, spn, 1.5)
+        same_lanes(f"K5 batched {tag}{caps}", ag_k,
+                   lambda i: fs.fpfh_agg(P[i], M[i], nv[i], spn[i], 1.5))
+        for i in range(lanes):
+            keep = M[i] & nv[i]
+            errs["spfh_b"] = max(errs["spfh_b"], check_rows(
+                f"K4 batched {tag} lane {i} {caps}", sp_k[i], sp_p[i], 1e-3,
+                0.0, lambda r: spfh_rows_explained(
+                    sp_k[i], sp_p[i], P[i], nrm[i], keep, r, 1.5)))
+            errs["agg_b"] = max(errs["agg_b"], check_rows(
+                f"K5 batched {tag} lane {i} {caps}", ag_k[i], ag_p[i], 1e-2,
+                1e-4, lambda r: radius_boundary_rows(P[i], keep, r, (1.5,))))
+        desc, val, _ = fs.fpfh_radius_batched(P, M, 0.9, 1.5, vp)
+        clouds[tag] = (P, M, nrm, nv, spn, desc, val)
+
+    P, M = clouds["src"][:2]
+    D, DM = clouds["dst"][:2]
+    moved = se3.transform_points(P, se3.se3_exp(torch.tensor(
+        [0.0, 0.0, 0.1, 0.3, -0.2, 0.0], device=P.device))).contiguous()
+    desc_s, val_s = clouds["src"][5:]
+    desc_d, val_d = clouds["dst"][5:]
+    for name, args in (
+            ("K1 batched k=1 F=3 (GICP NN)", (moved, M, D, DM, 1)),
+            ("K1 batched k=1 F=33 (matching)", (desc_s, val_s, desc_d,
+                                                val_d, 1)),
+            ("K1 batched k=15 F=3 (covariances)", (D, DM, D, DM, 15))):
+        got = knn_cuda.knn_batched(*args)
+        want = knn_cuda.knn_batched_plain(*args)
+        same_lanes(f"{name} {caps}", got, lambda i: knn_cuda.knn(
+            *(a[i] for a in args[:4]), args[4]))
+        for i in range(lanes):
+            errs["knn_b"] = max(errs["knn_b"], check_knn(
+                f"{name} lane {i} {caps}", lane_view(got, i),
+                lane_view(want, i), *(a[i] for a in args[:4]), args[4]))
+    so = torch.stack([knn_cuda.morton_order(p, m) for p, m in zip(moved, M)])
+    do = torch.stack([knn_cuda.morton_order(p, m) for p, m in zip(D, DM)])
+    sorted_nn = (torch.gather(moved, 1, so[..., None].expand(-1, -1, 3)),
+                 torch.gather(M, 1, so),
+                 torch.gather(D, 1, do[..., None].expand(-1, -1, 3)),
+                 torch.gather(DM, 1, do))
+    for k in (1, 15):
+        got = knn_cuda.knn_banded_batched(*sorted_nn, k)
+        want = knn_cuda.knn_banded_batched_plain(*sorted_nn, k)
+        same_lanes(f"K2 batched k={k} {caps}", got, lambda i: (
+            knn_cuda.knn_banded(*(a[i] for a in sorted_nn), k)))
+        for i in range(lanes):
+            errs["knn_banded_b"] = max(errs["knn_banded_b"], check_knn(
+                f"K2 batched k={k} lane {i} {caps}", lane_view(got, i),
+                lane_view(want, i), *(a[i] for a in sorted_nn), k))
+        if not all(torch.equal(g, w) for g, w in zip(
+                got, knn_cuda.knn_batched(*sorted_nn, k))):
+            raise AssertionError(f"K2 batched k={k} {caps}: differs from "
+                                 f"K1 batched")
+    log(f"batched kernels {caps}: every lane equals its single-cloud kernel "
+        f"bit for bit; K2 batched equals K1 batched bit for bit at k=1 and "
+        f"k=15")
+    torch.cuda.synchronize()
+    return clouds, sorted_nn
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -251,6 +416,228 @@ def main_path_runs(store, drift):
     return runs
 
 
+BATCHED = ("knn_b", "knn_banded_b", "moments_b", "spfh_b", "agg_b")
+
+
+def launch_counters():
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
+
+    return {"knn": knn_cuda.knn, "knn_banded": knn_cuda.knn_banded,
+            "moments": fs.moments, "spfh": fs.spfh, "agg": fs.fpfh_agg,
+            "knn_b": knn_cuda.knn_batched,
+            "knn_banded_b": knn_cuda.knn_banded_batched,
+            "moments_b": fs.moments_batched, "spfh_b": fs.spfh_batched,
+            "agg_b": fs.fpfh_agg_batched}
+
+
+def launches_now():
+    return {k: c.launches for k, c in launch_counters().items()}
+
+
+def pipeline_config():
+    """Default capacities (4096 keyframes, 512 loop factors, 8192 points a
+    keyframe, src/dst caps 16384/32768) and loop_batch 4, with the compact
+    loop timing of tests/test_pipeline.py (12 s time gap, 5 m radius) and
+    a tick every 2 s, so that most ticks find two or more keyframes
+    pending."""
+    from fast_lio_sam_qn_tpu_torch.utils.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    cfg.loop.loop_detection_timediff_threshold = 12.0
+    cfg.loop.loop_detection_radius = 5.0
+    cfg.loop.loop_batch = 4
+    cfg.loop_update_hz = 0.5
+    return cfg
+
+
+def pipeline_run(dev):
+    """tests/test_pipeline.py's recipe at full width: a 26 m room, a 7 m
+    circle lapped every 20 s, scans at 5 Hz, odometry drifting by a
+    seeded random twist per scan.  Returns (pipeline, ground truth at the
+    keyframes, drifted-odometry ATE, batched ticks, feed timings)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.pipeline import FastLioSamQnPipeline
+    from fast_lio_sam_qn_tpu_torch.ops import se3
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation, sim
+    from fast_lio_sam_qn_tpu_torch.utils.profiling import Profiler
+
+    world = sim.World.room(size=26.0, height=5.0, n_boxes=10, seed=3)
+    traj = sim.Trajectory.loop(radius=7.0, period=20.0)
+    rng = np.random.default_rng(0)
+    pipe = FastLioSamQnPipeline(pipeline_config(), Profiler(), device=dev)
+    lc = pipe.loop_closure
+    batch_fn = lc.perform_loop_closure_batch
+    ticks = []
+
+    def traced(store, q, c):
+        before = launches_now()
+        out = batch_fn(store, q, c)
+        torch.cuda.synchronize()
+        after = launches_now()
+        ticks.append((list(q), list(c),
+                      {k: after[k] - before[k] for k in after}))
+        return out
+
+    lc.perform_loop_closure_batch = traced
+    odom = prev = None
+    gt_kf, feeds = [], []
+    for i in range(PIPE_SCANS):
+        t = i * 0.2
+        T_gt = traj.pose(t)
+        if odom is None:
+            odom = T_gt.copy()
+        else:
+            xi = rng.normal(0, 0.004, 6) * np.array([0.2, 0.2, 1, 1, 1, 0.2])
+            noise = se3.se3_exp(torch.tensor(xi, dtype=torch.float32))
+            odom = odom @ np.linalg.inv(prev) @ T_gt @ noise.double().numpy()
+        prev = T_gt
+        scan, _ = sim.simulate_scan(world, T_gt, n_points=PIPE_POINTS,
+                                    noise=0.01, seed=100 + i)
+        cloud, mask = sim.pad_cloud(scan, PIPE_POINTS)
+        n_kf = pipe.current_kf_idx
+        n_tick = pipe.profiler.stats["loop"].count
+        t0 = time.perf_counter()
+        pipe.feed(odom.astype(np.float32), cloud, mask, t)
+        ms = (time.perf_counter() - t0) * 1e3
+        kf = pipe.current_kf_idx > n_kf
+        feeds.append((ms, kf, pipe.profiler.stats["loop"].count > n_tick))
+        if kf:
+            gt_kf.append(T_gt)
+    lc.perform_loop_closure_batch = batch_fn
+    odom_kf, _ = pipe.get_trajectories()
+    gt_kf = np.stack(gt_kf)
+    return pipe, gt_kf, evaluation.ate_rmse(odom_kf, gt_kf, align=False), \
+        ticks, feeds
+
+
+def check_pipeline(pipe, gt_kf, ate_odom, ticks):
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation
+
+    single = ("knn", "knn_banded", "moments", "spfh", "agg")
+    multi = [t for t in ticks if sum(c >= 0 for c in t[1]) >= 2]
+    for q, c, d in ticks:
+        if any(d[k] for k in single) or not all(d[k] > 0 for k in BATCHED):
+            raise AssertionError(f"batched tick {q} -> {c} launched {d}")
+    log(f"pipeline: {pipe.current_kf_idx} keyframes, {len(ticks)} batched "
+        f"ticks ({len(multi)} with 2+ candidate lanes), "
+        f"{len(pipe.loop_events)} loop events, "
+        f"{sum(e.accepted for e in pipe.loop_events)} accepted, "
+        f"{len(pipe.loop_idx_pairs)} committed")
+    if len(multi) < 3:
+        raise AssertionError(f"only {len(multi)} batched ticks with 2+ "
+                             f"candidate lanes")
+    last_tick = max(e.tick_time for e in pipe.loop_events)
+    n_before = sum(1 for t in pipe.kf_timestamps if t <= last_tick)
+    if not all(pipe._kf_processed[:n_before]):
+        raise AssertionError("a keyframe before the last tick was skipped")
+    if not pipe.loop_idx_pairs:
+        raise AssertionError("no loop was accepted and committed")
+    _, corrected = pipe.get_trajectories()
+    if not np.isfinite(corrected).all() or corrected.shape != gt_kf.shape:
+        raise AssertionError("corrected trajectory non-finite or misshapen")
+    ate = evaluation.ate_rmse(corrected, gt_kf, align=False)
+    log(f"pipeline ATE: corrected {ate:.4f} m, drifted odometry "
+        f"{ate_odom:.4f} m")
+    if not (ate < ate_odom and ate < 0.5):
+        raise AssertionError(f"corrected ATE {ate} (odometry {ate_odom})")
+    return multi
+
+
+def lane_vs_single(pipe, tick):
+    """One batched tick re-run lane by lane through perform_loop_closure on
+    the same store; the batched tick and a solve repeat bit for bit."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import pgo, se3
+
+    lc, store = pipe.loop_closure, pipe.store
+    q, c, _ = tick
+    reg = lc.perform_loop_closure_batch(store, q, c)
+    again = lc.perform_loop_closure_batch(store, q, c)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(reg, again)):
+        raise AssertionError("a repeated batched tick differs")
+    worst_t = worst_r = 0.0
+    for b, (qi, ci) in enumerate(zip(q, c)):
+        if ci < 0:
+            continue
+        one = lc.perform_loop_closure(store, qi, ci)
+        for f in ("closest_idx", "is_converged", "is_valid"):
+            if not torch.equal(getattr(one, f), getattr(reg, f)[b]):
+                raise AssertionError(f"lane {b} ({qi} -> {ci}): {f} differs")
+        err = se3.se3_log(torch.linalg.inv(one.pose_between.double())
+                          @ reg.pose_between[b].double())
+        worst_t = max(worst_t, float(torch.linalg.norm(err[3:])))
+        worst_r = max(worst_r, float(torch.linalg.norm(err[:3])))
+    log(f"lane vs single on tick {q} -> {c}: same decisions, largest pose "
+        f"difference {worst_t:.3e} m / {worst_r:.3e} rad; the batched "
+        f"tick repeats bit for bit")
+    if not (worst_t < 1e-3 and worst_r < 1e-3):
+        raise AssertionError("a lane differs from its single run")
+    args = (pipe.graph, pipe._prior_var, pipe._odom_var)
+    g1 = pgo.optimize(*args, gn_iters=5, robust_delta=pipe.cfg.robust_delta)
+    g2 = pgo.optimize(*args, gn_iters=5, robust_delta=pipe.cfg.robust_delta)
+    if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise AssertionError("a repeated pose-graph solve differs")
+    log("pgo.optimize (5 GN steps) repeats bit for bit")
+
+
+def time_pairs(timed, card):
+    """kernel and plain version in turns (plain, kernel, kernel, plain);
+    the better of each pair of medians."""
+    ms = {}
+    for name, (kern, plain) in timed.items():
+        a = cuda_ms(plain)
+        b = cuda_ms(kern)
+        c = cuda_ms(kern)
+        d = cuda_ms(plain)
+        ms[name] = (min(b, c), min(a, d))
+        log(f"time {name}: kernel {b:.4f} / {c:.4f} ms, plain {a:.4f} / "
+            f"{d:.4f} ms [{card}]")
+    return ms
+
+
+def pipeline_timings(pipe, multi, feeds, card):
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import pgo
+    from fast_lio_sam_qn_tpu_torch.tools.pgo_graph import build_graph
+
+    lc, store = pipe.loop_closure, pipe.store
+    q, c, _ = max(multi, key=lambda t: sum(ci >= 0 for ci in t[1]))
+    pairs = [(qi, ci) for qi, ci in zip(q, c) if ci >= 0]
+    tb = cuda_ms(lambda: lc.perform_loop_closure_batch(store, q, c))
+    ts = cuda_ms(lambda: [lc.perform_loop_closure(store, qi, ci)
+                          for qi, ci in pairs])
+    log(f"time batched tick B={len(q)} ({len(pairs)} candidate lanes): "
+        f"{tb:.3f} ms; {len(pairs)} single registrations on the same "
+        f"candidates: {ts:.3f} ms [{card}]")
+    cfg = pipe.cfg
+    g, _, n_loops = build_graph(1024, device=pipe.device,
+                                capacity=cfg.caps.max_keyframes,
+                                loop_capacity=cfg.caps.max_loop_factors)
+    for gn in (2, 5):
+        t = cuda_ms(lambda: pgo.optimize(
+            g, pipe._prior_var, pipe._odom_var, gn_iters=gn,
+            robust_delta=cfg.robust_delta))
+        log(f"time pgo.optimize {gn} GN steps, 1024 of "
+            f"{cfg.caps.max_keyframes} nodes, {n_loops} of "
+            f"{cfg.caps.max_loop_factors} loops: {t:.3f} ms [{card}]")
+    for label, sel in (("non-keyframe", lambda kf, tick: not kf and not tick),
+                       ("keyframe", lambda kf, tick: kf and not tick),
+                       ("with a loop tick", lambda kf, tick: tick)):
+        ms = [f[0] for f in feeds if sel(f[1], f[2])]
+        if ms:
+            log(f"time feed, {label} scans: median {np.median(ms):.3f} ms, "
+                f"max {max(ms):.3f} ms over {len(ms)} scans (host clock; "
+                f"feed ends in a host read) [{card}]")
+    for name, st in pipe.profiler.summary().items():
+        log(f"  span {name}: {st}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -279,25 +666,49 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     store, drift = bp.build_store(dev)
-    errs = {"knn": 0.0, "knn_banded": 0.0, "moments": 0.0, "spfh": 0.0,
-            "agg": 0.0}
+    errs = {k: 0.0 for k in launch_counters()}
     inputs, nn_args, sorted_nn, desc_args = kernel_parity(
         store, bp.SRC_CAP, bp.DST_CAP, errs)
     kernel_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP, errs)
+    batched_parity(store, bp.SRC_CAP, bp.DST_CAP, errs)
+    # the lanes and shapes a batched tick of the pipeline gives the kernels;
+    # the timings reuse them
+    clouds, bsorted = batched_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP,
+                                     errs,
+                                     lanes=pipeline_config().loop.loop_batch)
 
-    counters = {"knn": knn_cuda.knn, "knn_banded": knn_cuda.knn_banded,
-                "moments": fs.moments, "spfh": fs.spfh, "agg": fs.fpfh_agg}
-    for c in counters.values():
-        c.launches = 0
+    counters = launch_counters()
+    for cnt in counters.values():
+        cnt.launches = 0
     runs = main_path_runs(store, drift)
-    launches = {k: c.launches for k, c in counters.items()}
-    log(f"main-path launches: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: "
+    launches = launches_now()
+    log(f"attempt-path launches: {launches}")
+    if not all(launches[k] > 0 for k in ("knn", "knn_banded", "moments",
+                                         "spfh", "agg")):
+        raise AssertionError(f"a kernel of the attempt never launched: "
                              f"{launches}")
 
+    for cnt in counters.values():
+        cnt.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pipe, gt_kf, ate_odom, ticks, feeds = pipeline_run(dev)
+    torch.cuda.synchronize()
+    pipe_launches = launches_now()
+    log(f"pipeline run: {PIPE_SCANS} scans in "
+        f"{time.perf_counter() - t0:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; "
+        f"launches {pipe_launches}")
+    for k in BATCHED:
+        launches[k] = pipe_launches[k]
+    if not all(launches[k] > 0 for k in BATCHED):
+        raise AssertionError(f"a batched kernel of the pipeline never "
+                             f"launched: {pipe_launches}")
+    multi = check_pipeline(pipe, gt_kf, ate_odom, ticks)
+    lane_vs_single(pipe, multi[-1])
+
     p, m, nrm, nv, spfh_n, _ = inputs["src"]
-    timed = {
+    ms = time_pairs({
         "knn": (lambda: knn_cuda.knn(*nn_args, 1),
                 lambda: knn.brute_knn(*nn_args, 1)),
         "knn_banded": (lambda: knn_cuda.knn_banded(*sorted_nn, 1),
@@ -308,39 +719,53 @@ def main() -> int:
                  lambda: fs.spfh_plain(p, m, nrm, nv, 1.5)),
         "agg": (lambda: fs.fpfh_agg(p, m, nv, spfh_n, 1.5),
                 lambda: fs.fpfh_agg_plain(p, m, nv, spfh_n, 1.5)),
-    }
-    ms = {}
-    for name, (kern, plain) in timed.items():
-        # plain, kernel, kernel, plain: one card, one call, in turns
-        a = cuda_ms(plain)
-        b = cuda_ms(kern)
-        c = cuda_ms(kern)
-        d = cuda_ms(plain)
-        ms[name] = (min(b, c), min(a, d))
-        log(f"time {name}: kernel {b:.4f} / {c:.4f} ms, plain {a:.4f} / "
-            f"{d:.4f} ms [{card}]")
+    }, card)
     k1s = cuda_ms(lambda: knn_cuda.knn(*sorted_nn, 1))
     log(f"time knn (K1) on K2's sorted GICP clouds: {k1s:.4f} ms [{card}]")
     k33 = cuda_ms(lambda: knn_cuda.knn(*desc_args, 1))
     k33p = cuda_ms(lambda: knn.brute_knn(*desc_args, 1))
     log(f"time knn k=1 F=33 {bp.SRC_CAP}x{bp.DST_CAP}: kernel {k33:.4f} ms, "
         f"plain {k33p:.4f} ms [{card}]")
+    P, M, bnrm, bnv, bspn, bdesc, bval = clouds["src"]
+    D, DM = clouds["dst"][:2]
+    ddesc, dval = clouds["dst"][5:]
+    ms.update(time_pairs({
+        "knn_b": (lambda: knn_cuda.knn_batched(bdesc, bval, ddesc, dval, 1),
+                  lambda: knn_cuda.knn_batched_plain(bdesc, bval, ddesc,
+                                                     dval, 1)),
+        "knn_banded_b": (
+            lambda: knn_cuda.knn_banded_batched(*bsorted, 1),
+            lambda: knn_cuda.knn_banded_batched_plain(*bsorted, 1)),
+        "moments_b": (lambda: fs.moments_batched(P, M, 0.9, 0.6),
+                      lambda: fs.moments_batched_plain(P, M, 0.9, 0.6)),
+        "spfh_b": (lambda: fs.spfh_batched(P, M, bnrm, bnv, 1.5),
+                   lambda: fs.spfh_batched_plain(P, M, bnrm, bnv, 1.5)),
+        "agg_b": (lambda: fs.fpfh_agg_batched(P, M, bnv, bspn, 1.5),
+                  lambda: fs.fpfh_agg_batched_plain(P, M, bnv, bspn, 1.5)),
+    }, card))
+    log(f"batched kernel shapes: B={P.shape[0]}; K1 F=33 {P.shape[1]}x{D.shape[1]}; "
+        f"K2 F=3 sorted {P.shape[1]}x{D.shape[1]}; K3-K5 {P.shape[1]} rows")
     for label, lc in runs.items():
         t = cuda_ms(lambda: lc.fetch_and_perform(store, 1))
         log(f"time attempt {label}: {t:.3f} ms per fetch_and_perform "
             f"[{card}]")
+    pipeline_timings(pipe, multi, feeds, card)
 
+    knn_src = "fast_lio_sam_qn_tpu/ops/pallas_knn.py"
+    fs_src = "fast_lio_sam_qn_tpu/ops/fpfh_stream.py"
     table = [
-        ("knn", "knn.cu", "fast_lio_sam_qn_tpu/ops/pallas_knn.py:67",
-         "knn"),
-        ("knn_banded", "knn_banded.cu",
-         "fast_lio_sam_qn_tpu/ops/pallas_knn.py:293", "knn_banded"),
-        ("fpfh_moments", "fpfh_moments.cu",
-         "fast_lio_sam_qn_tpu/ops/fpfh_stream.py:96", "moments"),
-        ("fpfh_spfh", "fpfh_spfh.cu",
-         "fast_lio_sam_qn_tpu/ops/fpfh_stream.py:224", "spfh"),
-        ("fpfh_agg", "fpfh_agg.cu",
-         "fast_lio_sam_qn_tpu/ops/fpfh_stream.py:260", "agg"),
+        ("knn", "knn.cu", f"{knn_src}:67", "knn"),
+        ("knn_banded", "knn_banded.cu", f"{knn_src}:293", "knn_banded"),
+        ("fpfh_moments", "fpfh_moments.cu", f"{fs_src}:96", "moments"),
+        ("fpfh_spfh", "fpfh_spfh.cu", f"{fs_src}:224", "spfh"),
+        ("fpfh_agg", "fpfh_agg.cu", f"{fs_src}:260", "agg"),
+        ("knn_batched", "knn.cu", f"{knn_src}:185 (vmapped)", "knn_b"),
+        ("knn_banded_batched", "knn_banded.cu", f"{knn_src}:469",
+         "knn_banded_b"),
+        ("fpfh_moments_batched", "fpfh_moments.cu", f"{fs_src}:419",
+         "moments_b"),
+        ("fpfh_spfh_batched", "fpfh_spfh.cu", f"{fs_src}:419", "spfh_b"),
+        ("fpfh_agg_batched", "fpfh_agg.cu", f"{fs_src}:419", "agg_b"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{REPO}/csrc/{src}",

@@ -5,7 +5,10 @@ mirrors its layout so each counterpart is easy to find:
 
 - ``ops``     — SE(3) math, small linear algebra, voxel downsampling, kNN,
                 streaming radius-FPFH, Quatro, Nano-GICP.
-- ``models``  — the keyframe store and the loop-closure module.
+- ``models``  — the keyframe store, the loop-closure module and the
+                pose-graph pipeline.
+- ``utils``   — configuration, the scan simulator, trajectory evaluation
+                and stage timers (host-side, numpy).
 - ``csrc``    — hand-written CUDA C++ kernels for Hopper (``sm_90a``), built
                 at first use by ``kernels.py`` and bound with ``ctypes``.
 - ``convert`` — numpy -> torch state conversion (clouds, poses, keyframes).
@@ -14,8 +17,8 @@ Every function takes its tensors' device from its inputs; nothing here picks
 a device for the caller.  Kernel wrappers take their plain PyTorch version
 only for CPU tensors; on a CUDA tensor they launch the kernel or raise.
 
-Host-only modules of the JAX package that import no JAX (``utils.config``,
-``utils.sim``, ``configs.presets``) are shared, not copied.
+The port imports nothing of the JAX package: the host-side helpers it needs
+are its own, in ``utils``.
 """
 import torch
 

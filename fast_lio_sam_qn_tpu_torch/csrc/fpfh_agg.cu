@@ -13,6 +13,9 @@
 // Design: one thread per query with its 33 sums and the count in
 // registers; db tiles of 64 points (xyz, dd and the 33 SPFH columns) staged
 // in shared memory and read as broadcasts.
+// Grid-batched (the reference's _stream_caller vmap rule, the lowering at
+// fpfh_stream.py:419): blockIdx.y is the cloud and each cloud's operands
+// are one contiguous slab, so a lane runs exactly the single-cloud body.
 #include "common.cuh"
 
 namespace {
@@ -24,6 +27,12 @@ constexpr int kDim = 33;
 __global__ void agg_kernel(const float* __restrict__ pts, const float* __restrict__ qq,
                            const float* __restrict__ dd, const float* __restrict__ spfh, int n,
                            float r2, float* __restrict__ out) {
+  const size_t cloud = blockIdx.y;
+  pts += cloud * n * 3;
+  qq += cloud * n;
+  dd += cloud * n;
+  spfh += cloud * n * kDim;
+  out += cloud * n * (kDim + 1);
   __shared__ float s_x[kTile], s_y[kTile], s_z[kTile], s_dd[kTile];
   __shared__ float s_f[kTile * kDim];
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
@@ -69,11 +78,14 @@ __global__ void agg_kernel(const float* __restrict__ pts, const float* __restric
 }  // namespace
 
 // pts (n, 3); qq (n,) = |p|^2; dd (n,) = |p|^2 + penalty on points that are
-// masked or have no valid normal; spfh (n, 33); out (n, 34).
+// masked or have no valid normal; spfh (n, 33); out (n, 34).  b clouds of
+// these, every operand (b, ...) contiguous.
 FLSQ_API int flsq_fpfh_agg(const float* pts, const float* qq, const float* dd,
-                           const float* spfh, int n, float r2, float* out, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  agg_kernel<<<flsq::ceil_div(n, kBlock), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      pts, qq, dd, spfh, n, r2, out);
+                           const float* spfh, int b, int n, float r2, float* out,
+                           void* stream) {
+  if (b < 1 || b > 65535 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(flsq::ceil_div(n, kBlock), b);
+  agg_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(pts, qq, dd, spfh, n, r2,
+                                                                     out);
   return flsq::launch_status();
 }

@@ -15,6 +15,9 @@
 // points (x, y, z, dd) staged in shared memory and read as broadcasts.  The
 // feature products are rounded before the add, as the twin's matmul adds
 // precomputed features; only the summation order differs from the twin.
+// Grid-batched (the reference's _stream_caller vmap rule, the lowering at
+// fpfh_stream.py:419): blockIdx.y is the cloud and each cloud's operands
+// are one contiguous slab, so a lane runs exactly the single-cloud body.
 #include "common.cuh"
 
 namespace {
@@ -25,6 +28,11 @@ constexpr int kTile = 256;
 __global__ void moments_kernel(const float* __restrict__ pts, const float* __restrict__ qq,
                                const float* __restrict__ dd, int n, float r2a, float r2b,
                                float* __restrict__ out) {
+  const size_t cloud = blockIdx.y;
+  pts += cloud * n * 3;
+  qq += cloud * n;
+  dd += cloud * n;
+  out += cloud * n * 20;
   __shared__ float s_x[kTile], s_y[kTile], s_z[kTile], s_dd[kTile];
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = row < n;
@@ -76,11 +84,13 @@ __global__ void moments_kernel(const float* __restrict__ pts, const float* __res
 
 }  // namespace
 
-// pts (n, 3), qq (n,) = |p|^2, dd (n,) = |p|^2 + mask penalty; out (n, 20).
-FLSQ_API int flsq_fpfh_moments(const float* pts, const float* qq, const float* dd, int n,
+// b clouds, each: pts (n, 3), qq (n,) = |p|^2, dd (n,) = |p|^2 + mask penalty;
+// out (n, 20); every operand (b, ...) contiguous.
+FLSQ_API int flsq_fpfh_moments(const float* pts, const float* qq, const float* dd, int b, int n,
                                float r2a, float r2b, float* out, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  moments_kernel<<<flsq::ceil_div(n, kBlock), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      pts, qq, dd, n, r2a, r2b, out);
+  if (b < 1 || b > 65535 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(flsq::ceil_div(n, kBlock), b);
+  moments_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(pts, qq, dd, n, r2a,
+                                                                         r2b, out);
   return flsq::launch_status();
 }

@@ -20,6 +20,9 @@
 // exact integers, as the reference's 0/1-weighted float sums are.
 // Compiled with --fmad=false so every product and sum rounds as the twin's
 // separate elementwise ops do.
+// Grid-batched (the reference's _stream_caller vmap rule, the lowering at
+// fpfh_stream.py:419): blockIdx.y is the cloud and each cloud's operands
+// are one contiguous slab, so a lane runs exactly the single-cloud body.
 #include "common.cuh"
 
 namespace {
@@ -33,6 +36,12 @@ __global__ void spfh_kernel(const float* __restrict__ pts, const float* __restri
                             const float* __restrict__ qq, const float* __restrict__ dd,
                             const float* __restrict__ th_cs, int n, float r2,
                             float* __restrict__ out) {
+  const size_t cloud = blockIdx.y;
+  pts += cloud * n * 3;
+  nrm += cloud * n * 3;
+  qq += cloud * n;
+  dd += cloud * n;
+  out += cloud * n * kOut;
   __shared__ float s_p[6][kTile];  // x y z nx ny nz
   __shared__ float s_dd[kTile];
   __shared__ float s_cos[kBins + 1], s_sin[kBins + 1];
@@ -111,12 +120,14 @@ __global__ void spfh_kernel(const float* __restrict__ pts, const float* __restri
 
 // pts, nrm (n, 3); qq (n,) = |p|^2; dd (n,) = |p|^2 + penalty on points that
 // are masked or have no valid normal; th_cs (24,) = cos then sin of the 12
-// theta bin edges; out (n, 34).
+// theta bin edges; out (n, 34).  b clouds of these, every operand but th_cs
+// (b, ...) contiguous.
 FLSQ_API int flsq_fpfh_spfh(const float* pts, const float* nrm, const float* qq,
-                            const float* dd, const float* th_cs, int n, float r2, float* out,
-                            void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  spfh_kernel<<<flsq::ceil_div(n, kBlock), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      pts, nrm, qq, dd, th_cs, n, r2, out);
+                            const float* dd, const float* th_cs, int b, int n, float r2,
+                            float* out, void* stream) {
+  if (b < 1 || b > 65535 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(flsq::ceil_div(n, kBlock), b);
+  spfh_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(pts, nrm, qq, dd, th_cs,
+                                                                      n, r2, out);
   return flsq::launch_status();
 }

@@ -15,7 +15,11 @@
 // Design: one thread per query, the query row and its sorted top-k held in
 // registers (F and k are template bounds, loops fully unrolled); db tiles
 // of 128 rows are staged in shared memory and read as broadcasts (every
-// thread of the block reads the same address).  Masked db rows are flagged
+// thread of the block reads the same address).  Grid-batched: blockIdx.y
+// is the cloud (the counterpart of the reference's batched lowering, which
+// Pallas's vmap rule gives a leading grid axis); each cloud's operands are
+// one contiguous slab, so a lane runs exactly the single-cloud body and
+// gives its bits.  Masked db rows are flagged
 // with an infinite |v|^2 in shared memory and skipped.  A candidate enters
 // the list only if strictly smaller than the current k-th, and is bubbled
 // in front of strictly larger entries only, so equal distances keep db
@@ -33,6 +37,15 @@ __global__ void knn_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ dd, const uint8_t* __restrict__ dbmask,
                            int m, int n, int f, int k, float* __restrict__ out_d,
                            int* __restrict__ out_i) {
+  const size_t lane = blockIdx.y;
+  q += lane * m * f;
+  qq += lane * m;
+  qmask += lane * m;
+  db += lane * n * f;
+  dd += lane * n;
+  dbmask += lane * n;
+  out_d += lane * m * k;
+  out_i += lane * m * k;
   extern __shared__ float smem[];
   float* s_db = smem;               // kTile * f
   float* s_dd = smem + kTile * f;   // kTile, +inf on masked rows
@@ -105,9 +118,9 @@ __global__ void knn_kernel(const float* __restrict__ q, const float* __restrict_
 
 template <int FMAX>
 int launch_f(const float* q, const float* qq, const uint8_t* qmask, const float* db,
-             const float* dd, const uint8_t* dbmask, int m, int n, int f, int k, float* out_d,
-             int* out_i, cudaStream_t stream) {
-  const dim3 grid(flsq::ceil_div(m, kBlock));
+             const float* dd, const uint8_t* dbmask, int b, int m, int n, int f, int k,
+             float* out_d, int* out_i, cudaStream_t stream) {
+  const dim3 grid(flsq::ceil_div(m, kBlock), b);
   const size_t smem = sizeof(float) * (size_t)kTile * (f + 1);
   if (k <= 1) {
     knn_kernel<FMAX, 1><<<grid, kBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, m, n, f,
@@ -124,15 +137,17 @@ int launch_f(const float* q, const float* qq, const uint8_t* qmask, const float*
 
 }  // namespace
 
-// q (m, f), qq (m,) = |q|^2, qmask (m,), db (n, f), dd (n,) = |v|^2, dbmask (n,);
-// out_d (m, k), out_i (m, k).  1 <= f <= 64, 1 <= k <= 32, m >= 1.
+// b clouds, each: q (m, f), qq (m,) = |q|^2, qmask (m,), db (n, f), dd (n,) = |v|^2,
+// dbmask (n,); out_d (m, k), out_i (m, k); every operand (b, ...) contiguous.
+// 1 <= b <= 65535, 1 <= f <= 64, 1 <= k <= 32, m >= 1.
 FLSQ_API int flsq_knn(const float* q, const float* qq, const uint8_t* qmask, const float* db,
-                      const float* dd, const uint8_t* dbmask, int m, int n, int f, int k,
+                      const float* dd, const uint8_t* dbmask, int b, int m, int n, int f, int k,
                       float* out_d, int* out_i, void* stream) {
-  if (m < 1 || n < 0 || f < 1 || f > 64 || k < 1 || k > 32)
+  if (b < 1 || b > 65535 || m < 1 || n < 0 || f < 1 || f > 64 || k < 1 || k > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f <= 4) return launch_f<4>(q, qq, qmask, db, dd, dbmask, m, n, f, k, out_d, out_i, s);
-  if (f <= 36) return launch_f<36>(q, qq, qmask, db, dd, dbmask, m, n, f, k, out_d, out_i, s);
-  return launch_f<64>(q, qq, qmask, db, dd, dbmask, m, n, f, k, out_d, out_i, s);
+  if (f <= 4) return launch_f<4>(q, qq, qmask, db, dd, dbmask, b, m, n, f, k, out_d, out_i, s);
+  if (f <= 36)
+    return launch_f<36>(q, qq, qmask, db, dd, dbmask, b, m, n, f, k, out_d, out_i, s);
+  return launch_f<64>(q, qq, qmask, db, dd, dbmask, b, m, n, f, k, out_d, out_i, s);
 }

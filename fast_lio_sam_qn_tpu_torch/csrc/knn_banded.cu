@@ -33,6 +33,12 @@
 // with no valid query writes (inf, -1) and exits.  The tile loop is K1's
 // (same expansion, same strict-insert top-k, db index order), over the kept
 // tiles only, so every surviving pair gives K1's bits.
+//
+// Grid-batched (the reference's _banded_caller vmap rule, the lowering at
+// pallas_knn.py:469): both launches take blockIdx.y as the cloud, and each
+// cloud's operands, tile boxes and outputs are one contiguous slab.  A
+// lane's keep decisions read that lane's boxes only, so a lane runs
+// exactly the single-cloud body and gives its bits.
 #include "common.cuh"
 
 namespace {
@@ -58,6 +64,10 @@ __device__ __forceinline__ float warp_max(float v) {
 // valid points; +inf / -inf when the tile has none.
 __global__ void tile_bbox_kernel(const float* __restrict__ db, const uint8_t* __restrict__ dbmask,
                                  int n, int n_tiles, float* __restrict__ tbox) {
+  const size_t lane_b = blockIdx.y;
+  db += lane_b * n * 3;
+  dbmask += lane_b * n;
+  tbox += lane_b * n_tiles * 6;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= n_tiles) return;
@@ -93,6 +103,16 @@ __global__ void __launch_bounds__(kBlock)
                       const float* __restrict__ dd, const uint8_t* __restrict__ dbmask,
                       const float* __restrict__ tbox, int m, int n, int n_tiles, int k,
                       float* __restrict__ out_d, int* __restrict__ out_i) {
+  const size_t cloud = blockIdx.y;
+  q += cloud * m * 3;
+  qq += cloud * m;
+  qmask += cloud * m;
+  db += cloud * n * 3;
+  dd += cloud * n;
+  dbmask += cloud * n;
+  tbox += cloud * n_tiles * 6;
+  out_d += cloud * m * k;
+  out_i += cloud * m * k;
   extern __shared__ float smem[];
   float* s_db = smem;                  // kTile * 3
   float* s_dd = s_db + kTile * 3;      // kTile, +inf on masked rows
@@ -243,23 +263,23 @@ __global__ void __launch_bounds__(kBlock)
 
 }  // namespace
 
-// q (m, 3), qq (m,) = |q|^2, qmask (m,), db (n, 3), dd (n,) = |v|^2,
-// dbmask (n,); tbox (ceil(n / 128), 6) scratch; out_d (m, k), out_i (m, k).
-// 1 <= k <= 32, m >= 1, n <= 128 * 4096.
+// b clouds, each: q (m, 3), qq (m,) = |q|^2, qmask (m,), db (n, 3), dd (n,) = |v|^2,
+// dbmask (n,); tbox (ceil(n / 128), 6) scratch; out_d (m, k), out_i (m, k); every
+// operand (b, ...) contiguous.  1 <= b <= 65535, 1 <= k <= 32, m >= 1, n <= 128 * 4096.
 FLSQ_API int flsq_knn_banded(const float* q, const float* qq, const uint8_t* qmask,
-                             const float* db, const float* dd, const uint8_t* dbmask, int m,
-                             int n, int k, float* tbox, float* out_d, int* out_i,
+                             const float* db, const float* dd, const uint8_t* dbmask, int b,
+                             int m, int n, int k, float* tbox, float* out_d, int* out_i,
                              void* stream) {
   const int n_tiles = flsq::ceil_div(n, kTile);
-  if (m < 1 || n < 0 || k < 1 || k > 32 || n_tiles > kMaxTiles)
+  if (b < 1 || b > 65535 || m < 1 || n < 0 || k < 1 || k > 32 || n_tiles > kMaxTiles)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tiles > 0) {
     const int threads = 256;
-    tile_bbox_kernel<<<flsq::ceil_div(n_tiles * 32, threads), threads, 0, s>>>(db, dbmask, n,
-                                                                               n_tiles, tbox);
+    const dim3 boxes(flsq::ceil_div(n_tiles * 32, threads), b);
+    tile_bbox_kernel<<<boxes, threads, 0, s>>>(db, dbmask, n, n_tiles, tbox);
   }
-  const dim3 grid(flsq::ceil_div(m, kBlock));
+  const dim3 grid(flsq::ceil_div(m, kBlock), b);
   const size_t smem = sizeof(float) * ((size_t)kTile * 4 + 2 * (size_t)n_tiles);
   if (k <= 1) {
     knn_banded_kernel<1><<<grid, kBlock, smem, s>>>(q, qq, qmask, db, dd, dbmask, tbox, m, n,

@@ -28,16 +28,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
 
+MAX_BATCH = 65535  # gridDim.y
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream as void*, sizes as int
+# C signatures: every pointer and the stream as void*, sizes as int; each
+# kernel takes a batch count b (its grid's y axis) before its sizes
 _SIGNATURES = {
-    "flsq_knn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "flsq_knn_banded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "flsq_fpfh_moments": (_P, _P, _P, _I, _F, _F, _P, _P),
-    "flsq_fpfh_spfh": (_P, _P, _P, _P, _P, _I, _F, _P, _P),
-    "flsq_fpfh_agg": (_P, _P, _P, _P, _I, _F, _P, _P),
+    "flsq_knn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "flsq_knn_banded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                        _P),
+    "flsq_fpfh_moments": (_P, _P, _P, _I, _I, _F, _F, _P, _P),
+    "flsq_fpfh_spfh": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    "flsq_fpfh_agg": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
 }
 
 
@@ -110,6 +114,40 @@ def check_status(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{status}")
+
+
+def on_cuda(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (its wrapper runs the plain version), True
+    for a CUDA tensor (the kernel runs); raises on any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def per_lane(fn, *args):
+    """``fn`` called on each lane of ``args`` ((B, ...) tensors or length-B
+    sequences), its outputs stacked on a new leading axis (tuples and named
+    tuples of tensors field by field, at any depth).  This is how a
+    single-cloud function, a kernel wrapper or a plain version, runs over a
+    batch."""
+    return _stack([fn(*lane) for lane in zip(*args)])
+
+
+def _stack(outs):
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    fields = [_stack(list(f)) for f in zip(*outs)]
+    return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+
+def require_batch(b: int) -> None:
+    """The grid's y axis bounds the batch count of every kernel."""
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"batch of {b} clouds; the kernels take 1 to "
+                         f"{MAX_BATCH}")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -1,6 +1,6 @@
 """Fixed-capacity keyframe store — port of
 fast_lio_sam_qn_tpu/models/keyframes.py (``KeyframeStore``, ``empty_store``,
-``append``).
+``append``, ``grow``, ``rewrite_corrected``).
 
 Clouds are stored in the body frame, voxelized, padded with a mask.  Unlike
 the reference's immutable arrays, ``append`` writes the new keyframe into
@@ -64,3 +64,26 @@ def append(store: KeyframeStore, cloud, cloud_mask, pose, pose_corrected,
     store.poses_corrected[i] = pose_corrected
     store.timestamps[i] = timestamp
     return store._replace(count=store.count + 1)
+
+
+def grow(store: KeyframeStore, new_capacity: int) -> KeyframeStore:
+    """Re-pad the store to a larger capacity (amortized growth on
+    overflow); new slots hold zeros, masks off and identity poses."""
+    if new_capacity <= store.capacity:
+        return store
+    pad = new_capacity - store.capacity
+    fresh = empty_store(pad, store.points_per_frame, store.clouds.device,
+                        store.clouds.dtype)
+    return KeyframeStore(*[torch.cat([a, b]) for a, b in zip(
+        store[:-1], fresh[:-1])], count=store.count)
+
+
+def rewrite_corrected(store: KeyframeStore, poses) -> KeyframeStore:
+    """Overwrite the corrected poses of the first ``count`` keyframes from
+    the pose-graph estimate (the reference's O(N) rewrite after a loop),
+    in place."""
+    active = (torch.arange(store.capacity, device=store.clouds.device)
+              < store.count)[:, None, None]
+    store.poses_corrected.copy_(torch.where(
+        active, poses[:store.capacity], store.poses_corrected))
+    return store

@@ -10,10 +10,20 @@ fast_lio_sam_qn_tpu/models/loop_closure.py (single-candidate path).
   the coarse-aligned source, final = fine @ coarse.
 - ``fetch_and_perform``: one loop tick — candidate fetch, registration when
   there is a candidate, and the graph measurement.
+- ``fetch_closest_batch`` / ``perform_loop_closure_batch``: B candidates in
+  one registration, the counterpart of the reference's
+  ``jax.vmap(_perform_impl)``.
+
+The registration is written once, over a leading batch axis of lanes
+(``_register``).  The batched tick runs it with the batched kernels: the
+FPFH kernels, Quatro's matching and every GICP NN once for all lanes.  The
+single-candidate attempt runs it at B = 1 with the single-cloud kernels.
+The clouds are built, and Quatro's clique / GNC / voting steps run, lane by
+lane.
 
 The reference fuses a tick into one jitted program with ``lax.cond``; here
 the tick reads the candidate index back once and branches in Python.  The
-batched and sharded registration paths are not ported yet.
+sharded batch (a device mesh) is not ported.
 """
 from __future__ import annotations
 
@@ -21,9 +31,9 @@ from typing import NamedTuple
 
 import torch
 
-from fast_lio_sam_qn_tpu.utils.config import LoopClosureConfig
-
-from ..ops import fpfh, fpfh_stream, gicp, quatro, se3, voxel
+from .. import kernels
+from ..ops import fpfh, fpfh_stream, gicp, knn_cuda, quatro, se3, voxel
+from ..utils.config import LoopClosureConfig
 from .keyframes import KeyframeStore
 
 
@@ -116,94 +126,158 @@ class LoopClosure:
             store, query_pose, query_time, self.cfg.loop_detection_radius,
             self.cfg.loop_detection_timediff_threshold)
 
-    def icp_alignment(self, src, src_mask, dst, dst_mask, init_T=None,
-                      src_cov=None, dst_cov=None):
-        """GICP; plane covariances from the exact k-NN where not given."""
+    def fetch_closest_batch(self, store, query_poses, query_times):
+        """The candidate fetch for B queries ((B, 4, 4) poses, (B,) times):
+        (B,) int32, -1 where none."""
+        return torch.stack([self.fetch_closest_keyframe_idx(store, p, t)
+                            for p, t in zip(query_poses, query_times)])
+
+    def warm_batch(self, store: KeyframeStore):
+        """Load the kernel library (building it if missing) for a store on
+        the card, so that the first batched tick pays no build.  The
+        reference compiles its B-lane program here; eager PyTorch has no
+        program to compile (every batch size runs the same kernels), and
+        this adds no other behaviour."""
+        if store.clouds.device.type == "cuda":
+            kernels.load_library()
+
+    def icp_alignment(self, src, src_mask, dst, dst_mask, src_cov=None,
+                      dst_cov=None, *, batched: bool):
+        """GICP of B lanes ((B, N, 3) clouds); plane covariances from the
+        exact k-NN where not given.  ``batched`` runs every kernel once for
+        all lanes (the batched kernels); otherwise each lane calls the
+        single-cloud kernels.  Returns (GicpResult, valid), batched."""
         gc = self.cfg.gicp
+        k = gc.correspondences_number
+        if batched:
+            nn, covs = knn_cuda.nn_banded_batched, \
+                lambda p, m: gicp.plane_covariances_batched(p, m, k)
+        else:
+            nn, covs = gicp.nn_lanes, lambda p, m: kernels.per_lane(
+                lambda *a: gicp.plane_covariances(*a, k), p, m)
         if src_cov is None:
-            src_cov = gicp.plane_covariances(src, src_mask,
-                                             k=gc.correspondences_number)
+            src_cov = covs(src, src_mask)
         if dst_cov is None:
-            dst_cov = gicp.plane_covariances(dst, dst_mask,
-                                             k=gc.correspondences_number)
-        res = gicp.align(src, src_mask, dst, dst_mask, init_T=init_T,
-                         src_cov=src_cov, dst_cov=dst_cov,
-                         max_iter=gc.max_iter, max_corr_dist=gc.max_corr_dist,
-                         trans_eps=gc.transformation_epsilon)
+            dst_cov = covs(dst, dst_mask)
+        res = gicp.align_batched(
+            src, src_mask, dst, dst_mask, src_cov=src_cov, dst_cov=dst_cov,
+            max_iter=gc.max_iter, max_corr_dist=gc.max_corr_dist,
+            trans_eps=gc.transformation_epsilon, nn=nn)
         valid = res.converged & (res.fitness < gc.icp_score_thr)
         if self.cfg.degeneracy_gate:
             valid = valid & ~res.degenerate
         return res, valid
 
-    def coarse_to_fine_alignment(self, src, src_mask, dst, dst_mask, src_vp,
-                                 dst_vp):
-        """Quatro coarse -> GICP fine.  The plane covariances come from the
-        FPFH radius moments; the src ones are rotated into the
-        coarse-aligned frame, C' = R C R^T."""
+    def _max_corres(self, n_src: int) -> int:
         qc = self.cfg.quatro
-        ds, fs, (_, nvs, cs) = fpfh_stream.fpfh_radius(
-            src, src_mask, qc.fpfh_normal_radius, qc.fpfh_radius,
-            viewpoint=src_vp, cov_radius=qc.fpfh_cov_radius)
-        dd, fd, (_, nvd, cd) = fpfh_stream.fpfh_radius(
-            dst, dst_mask, qc.fpfh_normal_radius, qc.fpfh_radius,
-            viewpoint=dst_vp, cov_radius=qc.fpfh_cov_radius)
+        if qc.use_optimized_matching:
+            return qc.max_num_corres
+        return min(n_src, qc.advanced_max_corres)
+
+    def coarse_to_fine_alignment(self, src, src_mask, dst, dst_mask, src_vp,
+                                 dst_vp, *, batched: bool):
+        """Quatro coarse -> GICP fine over B lanes ((B, N, 3) clouds, (B, 3)
+        viewpoints), the kernels chosen by ``batched`` as in
+        ``icp_alignment``; Quatro's clique / GNC / voting steps run lane by
+        lane.  The plane covariances come from the FPFH radius moments; the
+        src ones are rotated into the coarse-aligned frame, C' = R C R^T.
+        Returns (final_T (B, 4, 4), fitness (B,), valid (B,), Quatro
+        converged (B,))."""
+        qc = self.cfg.quatro
+        radii = (qc.fpfh_normal_radius, qc.fpfh_radius)
+
+        def features(p, m, vp):
+            if batched:
+                return fpfh_stream.fpfh_radius_batched(
+                    p, m, *radii, vp, cov_radius=qc.fpfh_cov_radius)
+            return kernels.per_lane(lambda *a: fpfh_stream.fpfh_radius(
+                *a[:2], *radii, a[2], cov_radius=qc.fpfh_cov_radius),
+                p, m, vp)
+
+        ds, fs, (_, nvs, cs) = features(src, src_mask, src_vp)
+        dd, fd, (_, nvd, cd) = features(dst, dst_mask, dst_vp)
         fs = fpfh.distinctive(ds, fs, qc.planarity_threshold)
         fd = fpfh.distinctive(dd, fd, qc.planarity_threshold)
-        if qc.use_optimized_matching:
-            max_corres = qc.max_num_corres
+        match = dict(distance_threshold=qc.distance_threshold,
+                     max_corres=self._max_corres(src.shape[1]),
+                     optimized_matching=qc.use_optimized_matching)
+        if batched:
+            s, d, ok = quatro.match_features_batched(src, ds, fs, dst, dd, fd,
+                                                     **match)
         else:
-            max_corres = min(src.shape[0], qc.advanced_max_corres)
-        q = quatro.align(
-            src, ds, fs, dst, dd, fd, noise_bound=qc.noise_bound,
-            gnc_factor=qc.rot_gnc_factor, cost_diff_thr=qc.rot_cost_diff_thr,
-            distance_threshold=qc.distance_threshold, max_corres=max_corres,
-            rot_max_iter=qc.rot_max_iter,
-            optimized_matching=qc.use_optimized_matching,
-            estimate_scale=qc.estimating_scale)
+            s, d, ok = kernels.per_lane(
+                lambda *a: quatro.match_features(*a, **match),
+                src, ds, fs, dst, dd, fd)
+        q = kernels.per_lane(lambda *a: quatro.solve(
+            *a, noise_bound=qc.noise_bound, gnc_factor=qc.rot_gnc_factor,
+            cost_diff_thr=qc.rot_cost_diff_thr, rot_max_iter=qc.rot_max_iter,
+            estimate_scale=qc.estimating_scale), s, d, ok)
         src_c = se3.transform_points(src, q.transform)
         # pure rotation for C' = R C R^T (the transform carries s R when
         # estimating scale)
-        Rq = q.transform[:3, :3] / q.scale
-        src_covs = (torch.einsum("ab,nbc,dc->nad", Rq, cs, Rq), nvs)
-        fine, fine_valid = self.icp_alignment(src_c, src_mask, dst, dst_mask,
-                                              src_cov=src_covs,
-                                              dst_cov=(cd, nvd))
+        Rq = q.transform[:, :3, :3] / q.scale[:, None, None]
+        src_covs = (torch.einsum("zab,znbc,zdc->znad", Rq, cs, Rq), nvs)
+        fine, fine_valid = self.icp_alignment(
+            src_c, src_mask, dst, dst_mask, src_cov=src_covs,
+            dst_cov=(cd, nvd), batched=batched)
         # the committed measurement is the rigid projection of the coarse
         # transform (a no-op unless estimating scale)
         q_rigid = q.transform.clone()
-        q_rigid[:3, :3] = q.transform[:3, :3] / q.scale
+        q_rigid[:, :3, :3] = Rq
         final_T = se3.compose(fine.transform, q_rigid)
         valid = q.converged & fine_valid
         if qc.estimating_scale:
             valid = valid & (torch.abs(q.scale - 1.0) <= qc.scale_gate)
-        return final_T, fine.fitness, valid, q
+        return final_T, fine.fitness, valid, q.converged
+
+    def _register(self, store: KeyframeStore, qs, cs, batched: bool
+                  ) -> RegistrationOutput:
+        """Register query keyframes ``qs`` against candidates ``cs`` (host
+        int lists) as B lanes; a lane with closest_idx < 0 is computed
+        against keyframe 0 and comes out invalid with closest_idx -1, as in
+        the reference.  Every output has a leading batch axis."""
+        c = self.cfg
+        safe = [max(ci, 0) for ci in cs]
+        (src, src_mask), (dst, dst_mask) = kernels.per_lane(
+            lambda qi, ci: set_src_and_dst_cloud(
+                store, qi, ci, submap_range=c.num_submap_keyframes,
+                src_cap=self.src_cap, dst_cap=self.dst_cap,
+                voxel_res=c.voxel_res, enable_quatro=c.enable_quatro,
+                enable_submap_matching=c.enable_submap_matching), qs, safe)
+        if c.enable_quatro:
+            vp = store.poses_corrected[:, :3, 3]
+            T, score, valid, converged = self.coarse_to_fine_alignment(
+                src, src_mask, dst, dst_mask, vp[qs], vp[safe],
+                batched=batched)
+        else:
+            res, valid = self.icp_alignment(src, src_mask, dst, dst_mask,
+                                            batched=batched)
+            T, score, converged = res.transform, res.fitness, res.converged
+        closest = torch.tensor(cs, dtype=torch.int32, device=T.device)
+        has = closest >= 0
+        return RegistrationOutput(
+            pose_between=T, score=score, is_valid=valid & has,
+            is_converged=converged,
+            closest_idx=torch.where(has, closest, -1))
+
+    def perform_loop_closure_batch(self, store: KeyframeStore, query_idxs,
+                                   closest_idxs) -> RegistrationOutput:
+        """Register B query keyframes against their candidates in one
+        batched registration (the batched kernels, one launch for all
+        lanes).  The indices are host sequences (or tensors, read once);
+        lanes with closest_idx < 0 are padding (see ``_register``)."""
+        return self._register(
+            store, [int(i) for i in torch.as_tensor(query_idxs).tolist()],
+            [int(i) for i in torch.as_tensor(closest_idxs).tolist()],
+            batched=True)
 
     def perform_loop_closure(self, store: KeyframeStore, query_idx: int,
                              closest_idx: int) -> RegistrationOutput:
-        """Register the query keyframe against the candidate."""
-        c = self.cfg
-        no_candidate = closest_idx < 0
-        safe_idx = max(closest_idx, 0)
-        (src, src_mask), (dst, dst_mask) = set_src_and_dst_cloud(
-            store, query_idx, safe_idx, submap_range=c.num_submap_keyframes,
-            src_cap=self.src_cap, dst_cap=self.dst_cap,
-            voxel_res=c.voxel_res, enable_quatro=c.enable_quatro,
-            enable_submap_matching=c.enable_submap_matching)
-        if c.enable_quatro:
-            src_vp = store.poses_corrected[query_idx][:3, 3]
-            dst_vp = store.poses_corrected[safe_idx][:3, 3]
-            T, score, valid, q = self.coarse_to_fine_alignment(
-                src, src_mask, dst, dst_mask, src_vp, dst_vp)
-            converged = q.converged
-        else:
-            res, valid = self.icp_alignment(src, src_mask, dst, dst_mask)
-            T, score, converged = res.transform, res.fitness, res.converged
-        dev = T.device
-        return RegistrationOutput(
-            pose_between=T, score=score, is_valid=valid & (not no_candidate),
-            is_converged=converged,
-            closest_idx=torch.tensor(-1 if no_candidate else closest_idx,
-                                     dtype=torch.int32, device=dev))
+        """Register the query keyframe against the candidate, through the
+        single-cloud kernels."""
+        reg = self._register(store, [query_idx], [closest_idx],
+                             batched=False)
+        return RegistrationOutput(*(f[0] for f in reg))
 
     def fetch_and_perform(self, store: KeyframeStore, query_idx: int):
         """One loop-timer tick: candidate fetch, registration if there is a

@@ -13,9 +13,13 @@ with PCL's radius semantics and no neighbour cap:
 
 Each kernel wrapper takes its plain PyTorch version (``*_plain``, a port of
 the reference's ``_*_xla`` path) for a CPU tensor and launches its kernel
-for a CUDA tensor.  The plain versions use the reference's distance
-expansion d2 = |q|^2 - 2 q.v + |v|^2 in fp32, query block by query block,
-so they track the JAX package on the CPU; the kernels use the same
+for a CUDA tensor.  ``*_batched`` run the same kernels over B clouds of
+equal padding in one launch, the batch on the grid's y axis (the
+reference's grid-batched lowering, fpfh_stream.py:419); their plain
+versions apply the single plain version lane by lane.  The plain versions
+use the reference's distance expansion d2 = |q|^2 - 2 q.v + |v|^2 in fp32,
+query block by query block, over the points that may qualify, so they
+track the JAX package on the CPU; the kernels use the same
 expansion on the same |q|^2, |v|^2 operands.  The reference's Morton sort
 only served its bbox prune, which no kernel here does yet, so it is left
 out: results do not depend on point order beyond fp summation order.
@@ -55,19 +59,32 @@ def _block_d2(qb: torch.Tensor, points: torch.Tensor, dd: torch.Tensor):
     return sq_norms(qb)[:, None] - 2.0 * cross + dd[None, :]
 
 
-def _not_self(start: int, rows: int, n: int, device) -> torch.Tensor:
+def _not_self(start: int, rows: int, db_idx: torch.Tensor) -> torch.Tensor:
     """Pairs that are not the query itself, by index: a d2 threshold would
     flip on the expansion's ~1e-5 cancellation residue."""
-    qi = torch.arange(start, start + rows, device=device)
-    return qi[:, None] != torch.arange(n, device=device)[None, :]
+    qi = torch.arange(start, start + rows, device=db_idx.device)
+    return qi[:, None] != db_idx[None, :]
 
 
-def _check_cloud(name: str, points: torch.Tensor, extra=()) -> None:
-    n = points.shape[0]
+def _kept(points: torch.Tensor, keep: torch.Tensor):
+    """The plain versions search only the points that may qualify: (their
+    indices, |v|^2 of those).  A dropped point carries the +3.4e38 penalty
+    and never qualifies, so every sum loses only exact zeros and every
+    kept pair keeps its d2 bits."""
+    idx = torch.nonzero(keep).flatten()
+    return idx, sq_norms(points)[idx]
+
+
+def _check_clouds(name: str, points: torch.Tensor, extra=()) -> None:
+    """Validate (B, N, 3) points and (B, N, ...) operands for a launch."""
+    b, n, _ = points.shape
+    kernels.require_batch(b)
+    if n < 1:
+        raise ValueError(f"{name}: empty cloud")
     dev = points.device
-    kernels.require(points, f"{name}: points", torch.float32, (n, 3), dev)
-    for t, label, dt, shape in extra:
-        kernels.require(t, f"{name}: {label}", dt, shape, dev)
+    kernels.require(points, f"{name}: points", torch.float32, (b, n, 3), dev)
+    for t, label, dt, cols in extra:
+        kernels.require(t, f"{name}: {label}", dt, (b, n) + cols, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -84,37 +101,60 @@ def _features(points: torch.Tensor) -> torch.Tensor:
 
 def moments_plain(points, mask, radius: float, cov_radius: float):
     """(N, 20) radius moments at (radius, cov_radius)."""
-    dd = _db_norms(points, mask)
-    feats = _features(points)
+    idx, dd = _kept(points, mask)
+    db = points[idx]
+    feats = _features(db)
     out = []
     for s in range(0, points.shape[0], TQ):
-        d2 = _block_d2(points[s:s + TQ], points, dd)
+        d2 = _block_d2(points[s:s + TQ], db, dd)
         out.append(torch.cat([(d2 <= r * r).to(points.dtype) @ feats
                               for r in (radius, cov_radius)], dim=-1))
     return torch.cat(out)
 
 
-def moments(points, mask, radius: float, cov_radius: float):
-    """(N, 20) moments at (radius, cov_radius) — kernel K3 on CUDA."""
-    if points.device.type == "cpu":
-        return moments_plain(points, mask, radius, cov_radius)
-    n = points.shape[0]
-    _check_cloud("moments", points, ((mask, "mask", torch.bool, (n,)),))
+def _launch_moments(points, mask, radius: float, cov_radius: float):
+    b, n, _ = points.shape
+    _check_clouds("moments", points, ((mask, "mask", torch.bool, ()),))
     qq = sq_norms(points)
     dd = _db_norms(points, mask)
-    out = torch.empty((n, 20), dtype=torch.float32, device=points.device)
+    out = torch.empty((b, n, 20), dtype=torch.float32, device=points.device)
     lib = kernels.load_library()
     with torch.cuda.device(points.device):
         status = lib.flsq_fpfh_moments(
-            points.data_ptr(), qq.data_ptr(), dd.data_ptr(), n,
+            points.data_ptr(), qq.data_ptr(), dd.data_ptr(), b, n,
             radius * radius, cov_radius * cov_radius, out.data_ptr(),
             kernels.stream(points))
     kernels.check_status(status, "fpfh moments")
-    moments.launches += 1
     return out
 
 
+def moments(points, mask, radius: float, cov_radius: float):
+    """(N, 20) moments at (radius, cov_radius) — kernel K3 on CUDA."""
+    if not kernels.on_cuda("moments", points):
+        return moments_plain(points, mask, radius, cov_radius)
+    out = _launch_moments(points[None], mask[None], radius, cov_radius)
+    moments.launches += 1
+    return out[0]
+
+
 moments.launches = 0
+
+
+def moments_batched_plain(points, mask, radius: float, cov_radius: float):
+    return kernels.per_lane(
+        lambda p, m: moments_plain(p, m, radius, cov_radius), points, mask)
+
+
+def moments_batched(points, mask, radius: float, cov_radius: float):
+    """(B, N, 20) moments of B clouds — kernel K3 in one launch on CUDA."""
+    if not kernels.on_cuda("moments_batched", points):
+        return moments_batched_plain(points, mask, radius, cov_radius)
+    out = _launch_moments(points, mask, radius, cov_radius)
+    moments_batched.launches += 1
+    return out
+
+
+moments_batched.launches = 0
 
 
 def _mom_comps(mom10):
@@ -137,7 +177,9 @@ def moments_to_normals_covs(mom, points, mask, viewpoint):
     """(N, 20) radius moments -> (normals, n_valid, cov_reg, mean).
 
     Normals: smallest eigenvector of the first moment block, oriented
-    toward ``viewpoint`` (the valid centroid when None).  cov_reg: the
+    toward ``viewpoint`` ((3,), or (N, 3) one per point; the valid centroid
+    when None).  Every step is elementwise per point, so a batch of clouds
+    goes through flattened.  cov_reg: the
     Nano-GICP regularized plane covariance V diag(eps, 1, 1) V^T from the
     second block; identity where the neighbourhood is too small."""
     cnt, mean, comps = _mom_comps(mom[:, :10])
@@ -146,7 +188,7 @@ def moments_to_normals_covs(mom, points, mask, viewpoint):
     if viewpoint is None:
         viewpoint = torch.sum(points * mask[:, None], 0) / torch.clamp(
             torch.sum(mask).to(points.dtype), min=1.0)
-    to_view = viewpoint[None, :] - points
+    to_view = viewpoint - points  # viewpoint (3,) or one per point (N, 3)
     n = n * torch.where(torch.sum(n * to_view, -1, keepdim=True) < 0,
                         -1.0, 1.0)
     n_valid = mask & (cnt >= 3)
@@ -198,34 +240,35 @@ def _angles(p, u, db, dbn, d2):
 
 
 def _hist33(alpha, phi, ty, tx, w):
-    """(B, 34): 3 x 11 histogram of the weighted pairs plus their count."""
-    cols = []
-    for vals, lo, hi in ((alpha, -1.0, 1.0), (phi, -1.0, 1.0)):
-        b = torch.clamp(((vals - lo) * (_NBINS / (hi - lo))).to(torch.int32),
+    """(B, 34): 3 x 11 histogram of the pairs selected by the bool ``w``
+    plus their count; counts are exact integers in float32."""
+    hist = torch.zeros((w.shape[0], 3 * _NBINS), dtype=torch.float32,
+                       device=w.device)
+    wf = w.to(torch.float32)
+    for k, vals in enumerate((alpha, phi)):
+        b = torch.clamp(((vals + 1.0) * (_NBINS / 2.0)).to(torch.int64),
                         0, _NBINS - 1)
-        for j in range(_NBINS):
-            cols.append(torch.sum(torch.where(b == j, w, 0.0), dim=1))
+        hist[:, k * _NBINS:(k + 1) * _NBINS].scatter_add_(1, b, wf)
     # degenerate (0, 0) lands in the theta = 0 bin, like atan2(0, 0) = 0
     tx = tx + 1e-20
     sig = [ty * _TH_COS[j] - tx * _TH_SIN[j] for j in range(_NBINS + 1)]
     for j in range(_NBINS):
-        m = (sig[j] >= 0.0) & (sig[j + 1] < 0.0)
-        cols.append(torch.sum(torch.where(m, w, 0.0), dim=1))
-    cols.append(torch.sum(w, dim=1))
-    return torch.stack(cols, dim=1)
+        m = (sig[j] >= 0.0) & (sig[j + 1] < 0.0) & w
+        hist[:, 2 * _NBINS + j] = torch.sum(m, dim=1)
+    return torch.cat([hist, torch.sum(w, dim=1, keepdim=True).to(hist.dtype)],
+                     dim=1)
 
 
 def spfh_plain(points, mask, normals, n_valid, radius: float):
     n = points.shape[0]
-    dd = _db_norms(points, mask & n_valid)
+    idx, dd = _kept(points, mask & n_valid)
     r2 = radius * radius
-    dbT, dbnT = points.T, normals.T
+    dbT, dbnT = points[idx].T, normals[idx].T
     out = []
     for s in range(0, n, TQ):
         qb, qnb = points[s:s + TQ], normals[s:s + TQ]
-        d2 = _block_d2(qb, points, dd)
-        w = ((d2 <= r2) & _not_self(s, qb.shape[0], n, points.device)
-             ).to(points.dtype)
+        d2 = _block_d2(qb, dbT.T, dd)
+        w = (d2 <= r2) & _not_self(s, qb.shape[0], idx)
         alpha, phi, ty, tx = _angles(
             (qb[:, 0:1], qb[:, 1:2], qb[:, 2:3]),
             (qnb[:, 0:1], qnb[:, 1:2], qnb[:, 2:3]), dbT, dbnT, d2)
@@ -233,33 +276,56 @@ def spfh_plain(points, mask, normals, n_valid, radius: float):
     return torch.cat(out)
 
 
-def spfh(points, mask, normals, n_valid, radius: float):
-    """(N, 34) raw SPFH counts + neighbour count — kernel K4 on CUDA."""
-    if points.device.type == "cpu":
-        return spfh_plain(points, mask, normals, n_valid, radius)
-    n = points.shape[0]
-    _check_cloud("spfh", points, (
-        (mask, "mask", torch.bool, (n,)),
-        (normals, "normals", torch.float32, (n, 3)),
-        (n_valid, "n_valid", torch.bool, (n,))))
+def _launch_spfh(points, mask, normals, n_valid, radius: float):
+    b, n, _ = points.shape
+    _check_clouds("spfh", points, (
+        (mask, "mask", torch.bool, ()),
+        (normals, "normals", torch.float32, (3,)),
+        (n_valid, "n_valid", torch.bool, ())))
     qq = sq_norms(points)
     dd = _db_norms(points, mask & n_valid)
     th = torch.tensor(_TH_COS + _TH_SIN, dtype=torch.float32,
                       device=points.device)
-    out = torch.empty((n, FPFH_DIM + 1), dtype=torch.float32,
+    out = torch.empty((b, n, FPFH_DIM + 1), dtype=torch.float32,
                       device=points.device)
     lib = kernels.load_library()
     with torch.cuda.device(points.device):
         status = lib.flsq_fpfh_spfh(
             points.data_ptr(), normals.data_ptr(), qq.data_ptr(),
-            dd.data_ptr(), th.data_ptr(), n, radius * radius,
+            dd.data_ptr(), th.data_ptr(), b, n, radius * radius,
             out.data_ptr(), kernels.stream(points))
     kernels.check_status(status, "fpfh spfh")
-    spfh.launches += 1
     return out
 
 
+def spfh(points, mask, normals, n_valid, radius: float):
+    """(N, 34) raw SPFH counts + neighbour count — kernel K4 on CUDA."""
+    if not kernels.on_cuda("spfh", points):
+        return spfh_plain(points, mask, normals, n_valid, radius)
+    out = _launch_spfh(points[None], mask[None], normals[None], n_valid[None],
+                       radius)
+    spfh.launches += 1
+    return out[0]
+
+
 spfh.launches = 0
+
+
+def spfh_batched_plain(points, mask, normals, n_valid, radius: float):
+    return kernels.per_lane(lambda *a: spfh_plain(*a, radius), points, mask,
+                            normals, n_valid)
+
+
+def spfh_batched(points, mask, normals, n_valid, radius: float):
+    """(B, N, 34) SPFH of B clouds — kernel K4 in one launch on CUDA."""
+    if not kernels.on_cuda("spfh_batched", points):
+        return spfh_batched_plain(points, mask, normals, n_valid, radius)
+    out = _launch_spfh(points, mask, normals, n_valid, radius)
+    spfh_batched.launches += 1
+    return out
+
+
+spfh_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -268,52 +334,97 @@ spfh.launches = 0
 
 def fpfh_agg_plain(points, mask, n_valid, spfh_n, radius: float):
     n = points.shape[0]
-    dd = _db_norms(points, mask & n_valid)
+    idx, dd = _kept(points, mask & n_valid)
+    db, spfh_db = points[idx], spfh_n[idx]
     r2 = radius * radius
     out = []
     for s in range(0, n, TQ):
         qb = points[s:s + TQ]
-        d2 = _block_d2(qb, points, dd)
-        in_r = (d2 <= r2) & _not_self(s, qb.shape[0], n, points.device)
+        d2 = _block_d2(qb, db, dd)
+        in_r = (d2 <= r2) & _not_self(s, qb.shape[0], idx)
         # 1e-12 floor on d2 = the reference's 1e-6 m floor on d
         w = torch.where(in_r, torch.rsqrt(torch.clamp(d2, min=1e-12)), 0.0)
-        out.append(torch.cat([w @ spfh_n,
+        out.append(torch.cat([w @ spfh_db,
                               torch.sum(in_r, dim=1, dtype=points.dtype
                                         )[:, None]], dim=-1))
     return torch.cat(out)
 
 
-def fpfh_agg(points, mask, n_valid, spfh_n, radius: float):
-    """(N, 34): sum of SPFH(v) / d(p, v) over neighbours + their count —
-    kernel K5 on CUDA."""
-    if points.device.type == "cpu":
-        return fpfh_agg_plain(points, mask, n_valid, spfh_n, radius)
-    n = points.shape[0]
-    _check_cloud("fpfh_agg", points, (
-        (mask, "mask", torch.bool, (n,)),
-        (n_valid, "n_valid", torch.bool, (n,)),
-        (spfh_n, "spfh", torch.float32, (n, FPFH_DIM))))
+def _launch_agg(points, mask, n_valid, spfh_n, radius: float):
+    b, n, _ = points.shape
+    _check_clouds("fpfh_agg", points, (
+        (mask, "mask", torch.bool, ()),
+        (n_valid, "n_valid", torch.bool, ()),
+        (spfh_n, "spfh", torch.float32, (FPFH_DIM,))))
     qq = sq_norms(points)
     dd = _db_norms(points, mask & n_valid)
-    out = torch.empty((n, FPFH_DIM + 1), dtype=torch.float32,
+    out = torch.empty((b, n, FPFH_DIM + 1), dtype=torch.float32,
                       device=points.device)
     lib = kernels.load_library()
     with torch.cuda.device(points.device):
         status = lib.flsq_fpfh_agg(
             points.data_ptr(), qq.data_ptr(), dd.data_ptr(),
-            spfh_n.data_ptr(), n, radius * radius, out.data_ptr(),
+            spfh_n.data_ptr(), b, n, radius * radius, out.data_ptr(),
             kernels.stream(points))
     kernels.check_status(status, "fpfh aggregation")
-    fpfh_agg.launches += 1
     return out
+
+
+def fpfh_agg(points, mask, n_valid, spfh_n, radius: float):
+    """(N, 34): sum of SPFH(v) / d(p, v) over neighbours + their count —
+    kernel K5 on CUDA."""
+    if not kernels.on_cuda("fpfh_agg", points):
+        return fpfh_agg_plain(points, mask, n_valid, spfh_n, radius)
+    out = _launch_agg(points[None], mask[None], n_valid[None], spfh_n[None],
+                      radius)
+    fpfh_agg.launches += 1
+    return out[0]
 
 
 fpfh_agg.launches = 0
 
 
+def fpfh_agg_batched_plain(points, mask, n_valid, spfh_n, radius: float):
+    return kernels.per_lane(lambda *a: fpfh_agg_plain(*a, radius), points,
+                            mask, n_valid, spfh_n)
+
+
+def fpfh_agg_batched(points, mask, n_valid, spfh_n, radius: float):
+    """(B, N, 34) aggregation of B clouds — kernel K5 in one launch on
+    CUDA."""
+    if not kernels.on_cuda("fpfh_agg_batched", points):
+        return fpfh_agg_batched_plain(points, mask, n_valid, spfh_n, radius)
+    out = _launch_agg(points, mask, n_valid, spfh_n, radius)
+    fpfh_agg_batched.launches += 1
+    return out
+
+
+fpfh_agg_batched.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
+
+def _normalized_spfh(raw):
+    cnt = raw[..., FPFH_DIM]
+    return (raw[..., :FPFH_DIM] / torch.clamp(cnt, min=1.0)[..., None]
+            ).contiguous()
+
+
+def _descriptor(spfh_n, raw, agg, n_valid):
+    """(desc, valid) from the SPFH counts and the aggregation."""
+    cnt_f = agg[..., FPFH_DIM]
+    fp = spfh_n + agg[..., :FPFH_DIM] / torch.clamp(cnt_f, min=1.0)[..., None]
+    blocks = []
+    for s in range(0, FPFH_DIM, _NBINS):
+        blk = fp[..., s:s + _NBINS]
+        blocks.append(100.0 * blk / torch.clamp(
+            torch.sum(blk, -1, keepdim=True), min=1e-9))
+    desc = torch.cat(blocks, dim=-1)
+    valid = n_valid & (raw[..., FPFH_DIM] >= 3)
+    return torch.where(valid[..., None], desc, 0.0), valid
+
 
 def fpfh_radius(points, mask, normal_radius: float, feature_radius: float,
                 viewpoint=None, cov_radius: float = 0.6):
@@ -326,18 +437,31 @@ def fpfh_radius(points, mask, normal_radius: float, feature_radius: float,
     normals, n_valid, cov_reg, _ = moments_to_normals_covs(
         mom, points, mask, viewpoint)
     raw = spfh(points, mask, normals, n_valid, float(feature_radius))
-    cnt = raw[:, FPFH_DIM]
-    spfh_n = (raw[:, :FPFH_DIM] / torch.clamp(cnt, min=1.0)[:, None]
-              ).contiguous()
+    spfh_n = _normalized_spfh(raw)
     agg = fpfh_agg(points, mask, n_valid, spfh_n, float(feature_radius))
-    cnt_f = agg[:, FPFH_DIM]
-    fp = spfh_n + agg[:, :FPFH_DIM] / torch.clamp(cnt_f, min=1.0)[:, None]
-    blocks = []
-    for s in range(0, FPFH_DIM, _NBINS):
-        blk = fp[:, s:s + _NBINS]
-        blocks.append(100.0 * blk / torch.clamp(
-            torch.sum(blk, -1, keepdim=True), min=1e-9))
-    desc = torch.cat(blocks, dim=-1)
-    valid = n_valid & (cnt >= 3)
-    desc = torch.where(valid[:, None], desc, 0.0)
+    desc, valid = _descriptor(spfh_n, raw, agg, n_valid)
     return desc, valid, (normals, n_valid, cov_reg)
+
+
+def fpfh_radius_batched(points, mask, normal_radius: float,
+                        feature_radius: float, viewpoint,
+                        cov_radius: float = 0.6):
+    """``fpfh_radius`` of B clouds of equal padding — (B, N, 3) points,
+    (B, N) masks, (B, 3) viewpoints — with one K3, one K4 and one K5
+    launch for the whole batch.  Returns the same tuple with a leading
+    batch axis on every tensor."""
+    b, n, _ = points.shape
+    mom = moments_batched(points, mask, float(normal_radius),
+                          float(cov_radius))
+    vp = viewpoint[:, None, :].expand(b, n, 3).reshape(b * n, 3)
+    normals, n_valid, cov_reg, _ = moments_to_normals_covs(
+        mom.reshape(b * n, 20), points.reshape(b * n, 3), mask.reshape(-1),
+        vp)
+    normals = normals.reshape(b, n, 3).contiguous()
+    n_valid = n_valid.reshape(b, n)
+    raw = spfh_batched(points, mask, normals, n_valid, float(feature_radius))
+    spfh_n = _normalized_spfh(raw)
+    agg = fpfh_agg_batched(points, mask, n_valid, spfh_n,
+                           float(feature_radius))
+    desc, valid = _descriptor(spfh_n, raw, agg, n_valid)
+    return desc, valid, (normals, n_valid, cov_reg.reshape(b, n, 3, 3))

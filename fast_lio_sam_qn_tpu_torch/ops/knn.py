@@ -42,7 +42,11 @@ def brute_knn(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
         if pair_ok is not None:
             ok = ok & pair_ok(s, s + d2.shape[0])
         d2 = torch.where(ok, d2, torch.inf)
-        vals, idx = torch.sort(d2, dim=1, stable=True)
+        if k == 1:
+            # the first minimum, as a stable sort's head
+            vals, idx = torch.min(d2, dim=1, keepdim=True)
+        else:
+            vals, idx = torch.sort(d2, dim=1, stable=True)
         d_out.append(vals[:, :k])
         i_out.append(idx[:, :k].to(torch.int32))
     d2 = torch.cat(d_out)

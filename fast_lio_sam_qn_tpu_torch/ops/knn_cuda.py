@@ -9,6 +9,10 @@ Counterpart of fast_lio_sam_qn_tpu/ops/pallas_knn.py:
   same result, searching for each query block only the db tiles that the
   bbox keep rule of ``block_tile_keep`` admits.  Both clouds should be
   Morton-sorted (``morton_order``) for the prune to skip anything.
+- ``*_batched``: the same kernels over B independent clouds in one launch,
+  the batch on the grid's y axis — the reference's grid-batched lowerings
+  (pallas_knn.py:469 for K2; Pallas's own vmap rule for K1).  Each has its
+  own launch counter, apart from the single-cloud one.
 
 The port returns exact (d2, idx) pairs: there is no packed-key quantization
 and so no ``MAX_DB`` cap.  A CPU tensor takes the plain version (ops/knn.py
@@ -31,47 +35,81 @@ BAND_TILE = 128      # K2's db tile (csrc/knn_banded.cu kTile)
 BAND_MAX_TILES = 4096
 
 
-def knn(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
-        dbmask: torch.Tensor, k: int):
-    """(dist2 (M, k), idx (M, k) int32, valid (M, k)) — see ops/knn.py."""
-    if queries.device.type == "cpu":
-        return brute_knn(queries, qmask, db, dbmask, k)
-    if queries.device.type != "cuda":
-        raise ValueError(f"knn: unsupported device {queries.device}")
-    m, f = queries.shape
-    n = db.shape[0]
+def _launch_knn(queries, qmask, db, dbmask, k: int):
+    """K1 over (B, M, F) queries and (B, N, F) dbs: one launch, the batch
+    on the grid's y axis."""
+    b, m, f = queries.shape
+    n = db.shape[1]
+    kernels.require_batch(b)
     if not (1 <= f <= MAX_F and 1 <= k <= MAX_K and m >= 1):
         raise ValueError(f"knn kernel takes 1 <= F <= {MAX_F}, 1 <= k <= "
                          f"{MAX_K}, M >= 1; got F={f}, k={k}, M={m}")
     dev = queries.device
     for t, name, dt, shape in (
-            (queries, "queries", torch.float32, (m, f)),
-            (qmask, "qmask", torch.bool, (m,)),
-            (db, "db", torch.float32, (n, f)),
-            (dbmask, "dbmask", torch.bool, (n,))):
+            (queries, "queries", torch.float32, (b, m, f)),
+            (qmask, "qmask", torch.bool, (b, m)),
+            (db, "db", torch.float32, (b, n, f)),
+            (dbmask, "dbmask", torch.bool, (b, n))):
         kernels.require(t, name, dt, shape, dev)
     qq = sq_norms(queries)
     dd = sq_norms(db)
-    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, m, k), dtype=torch.int32, device=dev)
     lib = kernels.load_library()
     with torch.cuda.device(dev):
         status = lib.flsq_knn(
             queries.data_ptr(), qq.data_ptr(), qmask.data_ptr(),
-            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), m, n, f, k,
+            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), b, m, n, f, k,
             out_d.data_ptr(), out_i.data_ptr(), kernels.stream(queries))
     kernels.check_status(status, "knn")
-    knn.launches += 1
     return out_d, out_i, out_i >= 0
 
 
+def knn(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
+        dbmask: torch.Tensor, k: int):
+    """(dist2 (M, k), idx (M, k) int32, valid (M, k)) — see ops/knn.py."""
+    if not kernels.on_cuda("knn", queries):
+        return brute_knn(queries, qmask, db, dbmask, k)
+    out = _launch_knn(queries[None], qmask[None], db[None], dbmask[None], k)
+    knn.launches += 1
+    return tuple(o[0] for o in out)
+
+
 knn.launches = 0
+
+
+def knn_batched_plain(queries, qmask, db, dbmask, k: int):
+    """K1's plain batched version: ``brute_knn`` on each lane."""
+    return kernels.per_lane(lambda *a: brute_knn(*a, k), queries, qmask, db,
+                            dbmask)
+
+
+def knn_batched(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
+                dbmask: torch.Tensor, k: int):
+    """K1 over B independent clouds — (B, M, F) queries against (B, N, F)
+    dbs, one launch.  Each lane equals ``knn`` on that lane bit for bit
+    (the reference batches K1 through Pallas's own vmap rule, which adds a
+    grid axis to the call at pallas_knn.py:185)."""
+    if not kernels.on_cuda("knn_batched", queries):
+        return knn_batched_plain(queries, qmask, db, dbmask, k)
+    out = _launch_knn(queries, qmask, db, dbmask, k)
+    knn_batched.launches += 1
+    return out
+
+
+knn_batched.launches = 0
 
 
 def nn(queries, qmask, db, dbmask):
     """Single nearest neighbour: (dist2 (M,), idx (M,), valid (M,))."""
     d2, idx, valid = knn(queries, qmask, db, dbmask, 1)
     return d2[:, 0], idx[:, 0], valid[:, 0]
+
+
+def nn_batched(queries, qmask, db, dbmask):
+    """Single nearest neighbour of each lane through batched K1."""
+    d2, idx, valid = knn_batched(queries, qmask, db, dbmask, 1)
+    return d2[..., 0], idx[..., 0], valid[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -146,50 +184,85 @@ def knn_banded_plain(queries, qmask, db, dbmask, k: int):
     return brute_knn(queries, qmask, db, dbmask, k, pair_ok=pair_ok)
 
 
-def knn_banded(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
-               dbmask: torch.Tensor, k: int):
-    """(dist2 (M, k), idx (M, k) int32, valid (M, k)) of 3-d points, equal
-    to ``knn``; fast when both clouds are Morton-sorted.  Ties follow the
-    given db order."""
-    if queries.device.type == "cpu":
-        return knn_banded_plain(queries, qmask, db, dbmask, k)
-    if queries.device.type != "cuda":
-        raise ValueError(f"knn_banded: unsupported device {queries.device}")
-    m = queries.shape[0]
-    n = db.shape[0]
+def _launch_banded(queries, qmask, db, dbmask, k: int):
+    """K2 over (B, M, 3) queries and (B, N, 3) dbs: one tile-box launch and
+    one search launch, the batch on the grid's y axis."""
+    b, m, _ = queries.shape
+    n = db.shape[1]
     n_tiles = -(-n // BAND_TILE)
+    kernels.require_batch(b)
     if not (1 <= k <= MAX_K and m >= 1 and n_tiles <= BAND_MAX_TILES):
         raise ValueError(f"knn_banded kernel takes 1 <= k <= {MAX_K}, M >= 1"
                          f", N <= {BAND_TILE * BAND_MAX_TILES}; got k={k}, "
                          f"M={m}, N={n}")
     dev = queries.device
     for t, name, dt, shape in (
-            (queries, "queries", torch.float32, (m, 3)),
-            (qmask, "qmask", torch.bool, (m,)),
-            (db, "db", torch.float32, (n, 3)),
-            (dbmask, "dbmask", torch.bool, (n,))):
+            (queries, "queries", torch.float32, (b, m, 3)),
+            (qmask, "qmask", torch.bool, (b, m)),
+            (db, "db", torch.float32, (b, n, 3)),
+            (dbmask, "dbmask", torch.bool, (b, n))):
         kernels.require(t, name, dt, shape, dev)
     qq = sq_norms(queries)
     dd = sq_norms(db)
-    tbox = torch.empty((n_tiles, 6), dtype=torch.float32, device=dev)
-    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    tbox = torch.empty((b, n_tiles, 6), dtype=torch.float32, device=dev)
+    out_d = torch.empty((b, m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, m, k), dtype=torch.int32, device=dev)
     lib = kernels.load_library()
     with torch.cuda.device(dev):
         status = lib.flsq_knn_banded(
             queries.data_ptr(), qq.data_ptr(), qmask.data_ptr(),
-            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), m, n, k,
+            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), b, m, n, k,
             tbox.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             kernels.stream(queries))
     kernels.check_status(status, "knn_banded")
-    knn_banded.launches += 1
     return out_d, out_i, out_i >= 0
 
 
+def knn_banded(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
+               dbmask: torch.Tensor, k: int):
+    """(dist2 (M, k), idx (M, k) int32, valid (M, k)) of 3-d points, equal
+    to ``knn``; fast when both clouds are Morton-sorted.  Ties follow the
+    given db order."""
+    if not kernels.on_cuda("knn_banded", queries):
+        return knn_banded_plain(queries, qmask, db, dbmask, k)
+    out = _launch_banded(queries[None], qmask[None], db[None], dbmask[None],
+                         k)
+    knn_banded.launches += 1
+    return tuple(o[0] for o in out)
+
+
 knn_banded.launches = 0
+
+
+def knn_banded_batched_plain(queries, qmask, db, dbmask, k: int):
+    """K2's plain batched version: ``knn_banded_plain`` on each lane."""
+    return kernels.per_lane(lambda *a: knn_banded_plain(*a, k), queries,
+                            qmask, db, dbmask)
+
+
+def knn_banded_batched(queries: torch.Tensor, qmask: torch.Tensor,
+                       db: torch.Tensor, dbmask: torch.Tensor, k: int):
+    """K2 over B independent clouds (the reference's grid-batched lowering,
+    pallas_knn.py:469): (B, M, 3) queries against (B, N, 3) dbs in one
+    launch; each lane's keep rule sees that lane's boxes only, and each
+    lane equals ``knn_banded`` on that lane bit for bit."""
+    if not kernels.on_cuda("knn_banded_batched", queries):
+        return knn_banded_batched_plain(queries, qmask, db, dbmask, k)
+    out = _launch_banded(queries, qmask, db, dbmask, k)
+    knn_banded_batched.launches += 1
+    return out
+
+
+knn_banded_batched.launches = 0
 
 
 def nn_banded(queries, qmask, db, dbmask):
     """Single nearest neighbour through K2."""
     d2, idx, valid = knn_banded(queries, qmask, db, dbmask, 1)
     return d2[:, 0], idx[:, 0], valid[:, 0]
+
+
+def nn_banded_batched(queries, qmask, db, dbmask):
+    """Single nearest neighbour of each lane through batched K2."""
+    d2, idx, valid = knn_banded_batched(queries, qmask, db, dbmask, 1)
+    return d2[..., 0], idx[..., 0], valid[..., 0]

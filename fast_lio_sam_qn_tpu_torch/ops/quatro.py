@@ -1,7 +1,9 @@
 """Quatro-equivalent robust global registration — port of
 fast_lio_sam_qn_tpu/ops/quatro.py.
 
-FPFH mutual-NN matching (through kernel K1), approximate max-clique
+FPFH mutual-NN matching (through kernel K1; ``match_features_batched``
+matches B cloud pairs through one batched K1 launch per direction, and
+``solve`` then runs the rest per lane), approximate max-clique
 inliers, GNC-TLS yaw, component-wise translation voting, optional TIM scale
 voting and a reweighted 2D Procrustes refinement.  Scalar parameters become
 0-d fp32 tensors so every derived threshold rounds as in the reference.
@@ -33,6 +35,37 @@ def _f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
+def _select_matches(src_pts, dst_pts, d2_sd, idx_sd, v_sd, idx_ds,
+                    distance_threshold, max_corres: int,
+                    optimized_matching: bool):
+    """Mutual check, spatial gate and best-``max_corres`` selection over
+    the last axis; any leading axes are a batch of clouds."""
+    n_src = idx_sd.shape[-1]
+    j_sd = torch.clamp(idx_sd, min=0).long()
+    back = torch.gather(idx_ds, -1, j_sd)
+    mutual = v_sd & (back == torch.arange(n_src, device=back.device))
+    j3 = j_sd[..., None].expand(j_sd.shape + (3,))
+    if optimized_matching:
+        spat = torch.linalg.norm(src_pts - torch.gather(dst_pts, -2, j3),
+                                 dim=-1)
+        ok = mutual & (spat <= _f32(distance_threshold, spat))
+    else:
+        ok = mutual
+    score = torch.where(ok, -d2_sd, -torch.inf)
+    if max_corres > n_src:
+        score = torch.cat([score, score.new_full(
+            score.shape[:-1] + (max_corres - n_src,), -torch.inf)], dim=-1)
+    top_score, top_i = torch.sort(score, dim=-1, descending=True,
+                                  stable=True)
+    top_score, top_i = top_score[..., :max_corres], top_i[..., :max_corres]
+    valid = torch.isfinite(top_score)
+    top_i = torch.clamp(top_i, 0, n_src - 1)
+    top3 = top_i[..., None].expand(top_i.shape + (3,))
+    d_idx = torch.gather(j_sd, -1, top_i)[..., None].expand(top3.shape)
+    return (torch.gather(src_pts, -2, top3), torch.gather(dst_pts, -2, d_idx),
+            valid)
+
+
 def match_features(src_pts, src_desc, src_valid, dst_pts, dst_desc,
                    dst_valid, distance_threshold, max_corres: int = 200,
                    optimized_matching: bool = True):
@@ -42,24 +75,23 @@ def match_features(src_pts, src_desc, src_valid, dst_pts, dst_desc,
     d2_sd, idx_sd, v_sd = knn_cuda.nn(src_desc, src_valid, dst_desc,
                                       dst_valid)
     _, idx_ds, _ = knn_cuda.nn(dst_desc, dst_valid, src_desc, src_valid)
-    n_src = src_desc.shape[0]
-    j_sd = torch.clamp(idx_sd, min=0).long()
-    back = idx_ds[j_sd]
-    mutual = v_sd & (back == torch.arange(n_src, device=back.device))
-    if optimized_matching:
-        spat = torch.linalg.norm(src_pts - dst_pts[j_sd], dim=-1)
-        ok = mutual & (spat <= _f32(distance_threshold, spat))
-    else:
-        ok = mutual
-    score = torch.where(ok, -d2_sd, -torch.inf)
-    if max_corres > n_src:
-        score = torch.cat([score, score.new_full((max_corres - n_src,),
-                                                 -torch.inf)])
-    top_score, top_i = torch.sort(score, descending=True, stable=True)
-    top_score, top_i = top_score[:max_corres], top_i[:max_corres]
-    valid = torch.isfinite(top_score)
-    top_i = torch.clamp(top_i, 0, n_src - 1)
-    return src_pts[top_i], dst_pts[j_sd[top_i]], valid
+    return _select_matches(src_pts, dst_pts, d2_sd, idx_sd, v_sd, idx_ds,
+                           distance_threshold, max_corres, optimized_matching)
+
+
+def match_features_batched(src_pts, src_desc, src_valid, dst_pts, dst_desc,
+                           dst_valid, distance_threshold,
+                           max_corres: int = 200,
+                           optimized_matching: bool = True):
+    """``match_features`` over B clouds ((B, N, ...) inputs), both nearest
+    neighbour passes through one batched K1 launch each.  Returns
+    (s_pts (B, C, 3), d_pts (B, C, 3), valid (B, C))."""
+    d2_sd, idx_sd, v_sd = knn_cuda.nn_batched(src_desc, src_valid, dst_desc,
+                                              dst_valid)
+    _, idx_ds, _ = knn_cuda.nn_batched(dst_desc, dst_valid, src_desc,
+                                       src_valid)
+    return _select_matches(src_pts, dst_pts, d2_sd, idx_sd, v_sd, idx_ds,
+                           distance_threshold, max_corres, optimized_matching)
 
 
 def max_clique_inliers(s_pts, d_pts, valid, noise_bound, iters: int = 64,
@@ -270,6 +302,17 @@ def align(src_pts, src_desc, src_valid, dst_pts, dst_desc, dst_valid, *,
         src_pts, src_desc, src_valid, dst_pts, dst_desc, dst_valid,
         distance_threshold, max_corres=max_corres,
         optimized_matching=optimized_matching)
+    return solve(s, d, valid, noise_bound=noise_bound, gnc_factor=gnc_factor,
+                 cost_diff_thr=cost_diff_thr, rot_max_iter=rot_max_iter,
+                 estimate_scale=estimate_scale)
+
+
+def solve(s, d, valid, *, noise_bound, gnc_factor, cost_diff_thr,
+          rot_max_iter: int = 50, estimate_scale: bool = False
+          ) -> QuatroResult:
+    """Quatro on one cloud pair's matches (s, d, valid): clique, GNC yaw,
+    translation voting and refinement.  The batched registration runs this
+    lane by lane after one batched matching pass."""
     if estimate_scale:
         # scale first, over all matches; the clique runs de-scaled
         scale, _ = estimate_scale_tims(s, d, valid, noise_bound)

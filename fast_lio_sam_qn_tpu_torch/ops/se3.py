@@ -1,5 +1,6 @@
 """SE(3)/SO(3) utilities on tensors — the slice of
-fast_lio_sam_qn_tpu/ops/se3.py that loop closure uses.
+fast_lio_sam_qn_tpu/ops/se3.py that loop closure, the pose graph and the
+pipeline use.
 
 Same conventions as the JAX module: 4x4 homogeneous poses, tangent vectors
 ordered [rx, ry, rz, tx, ty, tz], every function broadcasts over leading
@@ -167,3 +168,8 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to (..., N, 3)."""
     R, t = split_pose(T)
     return points @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def pose_distance(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """Euclidean translation distance — the keyframe gate's predicate."""
+    return torch.linalg.norm(Ta[..., :3, 3] - Tb[..., :3, 3], dim=-1)

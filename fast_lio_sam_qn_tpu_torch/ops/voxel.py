@@ -62,19 +62,25 @@ def _lexsort(keys) -> torch.Tensor:
 
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, res: float,
-                     out_cap: int | None = None):
+                     out_cap: int | None = None,
+                     feats: torch.Tensor | None = None):
     """Centroid-per-voxel downsample.
 
     points (N, 3) f32 padded, mask (N,) bool; res the voxel edge.  Returns
     (out_points (out_cap, 3), out_mask (out_cap,)).  When more voxels are
-    occupied than out_cap, the lowest-hash voxels win (deterministic)."""
+    occupied than out_cap, the lowest-hash voxels win (deterministic).
+    ``feats`` (N, C), e.g. intensity, are averaged per voxel by the same
+    segment walk as the points (pcl::VoxelGrid averages the whole
+    PointXYZI) and returned third, (out_cap, C)."""
     n = points.shape[0]
     out_cap = out_cap or n
+    data = points if feats is None else torch.cat(
+        [points, feats.to(points.dtype)], dim=-1)
     coords = voxel_coords(points, res)
     h = spatial_hash(coords)
     key = torch.where(mask, h, torch.iinfo(torch.int32).max)
     order = _lexsort((coords[:, 2], coords[:, 1], coords[:, 0], key))
-    data_s = points[order]
+    data_s = data[order]
     coords_s = coords[order]
     key_s = key[order]
     mask_s = mask[order]
@@ -94,7 +100,7 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, res: float,
     seg_end = torch.cat([seg_start[1:], last_end])
     w = mask_s.to(points.dtype)
     wdata = data_s * w[:, None]
-    seg_sum = torch.zeros((n_seg, 3), dtype=points.dtype,
+    seg_sum = torch.zeros((n_seg, data.shape[1]), dtype=points.dtype,
                           device=points.device)
     seg_cnt = torch.zeros((n_seg,), dtype=points.dtype, device=points.device)
     longest = int((seg_end - seg_start).max()) if n_seg else 0
@@ -106,9 +112,12 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, res: float,
         seg_cnt = seg_cnt + torch.where(live, w[pos], 0.0)
     centroid = seg_sum / torch.clamp(seg_cnt, min=1.0)[:, None]
 
-    out = torch.zeros((out_cap, 3), dtype=points.dtype, device=points.device)
+    out = torch.zeros((out_cap, data.shape[1]), dtype=points.dtype,
+                      device=points.device)
     out_mask = torch.zeros((out_cap,), dtype=torch.bool, device=points.device)
     m = min(n_seg, out_cap)
     out[:m] = centroid[:m]
     out_mask[:m] = True
-    return out, out_mask
+    if feats is None:
+        return out, out_mask
+    return out[:, :3], out_mask, out[:, 3:]

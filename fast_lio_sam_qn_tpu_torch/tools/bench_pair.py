@@ -8,14 +8,16 @@ keyframe 1 should return drift^-1 as its correction.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
-
-from fast_lio_sam_qn_tpu.utils import sim
 
 from .. import convert
 from ..models import keyframes
 from ..ops import se3
+from ..utils import sim
+from ..utils.config import LoopClosureConfig
 
 N_SCAN = 16384
 SRC_CAP, DST_CAP = 4352, 5632              # the benchmark's voxelized clouds
@@ -49,10 +51,6 @@ def build_store(device):
 def bench_config(optimized: bool = True):
     """LoopClosureConfig at the benchmark's setting (planarity threshold
     65) in the given matching mode."""
-    import dataclasses
-
-    from fast_lio_sam_qn_tpu.utils.config import LoopClosureConfig
-
     cfg = LoopClosureConfig()
     cfg.quatro = dataclasses.replace(
         cfg.quatro, planarity_threshold=65.0,

@@ -48,7 +48,7 @@ STAGES = (
     ("quatro.refine_yaw_translation", quatro, "refine_yaw_translation"),
     ("gicp.morton_order", knn_cuda, "morton_order"),
     ("gicp._gicp_iterate", gicp, "_gicp_iterate"),
-    ("gicp.fitness_score", gicp, "fitness_score"),
+    ("gicp._fitness", gicp, "_fitness"),
 )
 CELLS = (
     ("optimized", True, (bench_pair.SRC_CAP, bench_pair.DST_CAP)),

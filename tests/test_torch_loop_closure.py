@@ -15,6 +15,7 @@ from fast_lio_sam_qn_tpu.ops import se3 as jse3
 from fast_lio_sam_qn_tpu.utils import sim
 from fast_lio_sam_qn_tpu.utils.config import LoopClosureConfig
 from fast_lio_sam_qn_tpu_torch import convert
+from fast_lio_sam_qn_tpu_torch.utils import config as tconfig
 from fast_lio_sam_qn_tpu_torch.models import loop_closure
 from fast_lio_sam_qn_tpu_torch.ops import se3
 
@@ -124,11 +125,14 @@ def test_whole_attempt_matches_jax():
     within 2 cm / 0.005 rad; so do the graph measurements."""
     frames, drift = _pair()
     js, ts = _stores(frames, N_RAYS, capacity=2)
-    cfg = LoopClosureConfig()
-    cfg.quatro = dataclasses.replace(cfg.quatro, planarity_threshold=65.0)
-    wreg, wmeas = jlc.LoopClosure(cfg, CAP, CAP).fetch_and_perform(js, 1)
-    greg, gmeas = loop_closure.LoopClosure(cfg, CAP, CAP).fetch_and_perform(
-        ts, 1)
+    cfgs = []
+    for cls in (LoopClosureConfig, tconfig.LoopClosureConfig):
+        cfg = cls()
+        cfg.quatro = dataclasses.replace(cfg.quatro, planarity_threshold=65.0)
+        cfgs.append(cfg)
+    wreg, wmeas = jlc.LoopClosure(cfgs[0], CAP, CAP).fetch_and_perform(js, 1)
+    greg, gmeas = loop_closure.LoopClosure(cfgs[1], CAP,
+                                           CAP).fetch_and_perform(ts, 1)
     for reg in (wreg, greg):
         t_err, r_err = _gate_err(reg.pose_between, drift)
         assert t_err < 0.06 and r_err < 0.01, (t_err, r_err)
@@ -146,8 +150,8 @@ def test_whole_attempt_matches_jax():
 def test_no_candidate_tick():
     frames = _frames_at([(100.0, 0, 0), (0.0, 0, 0)], [10.0, 100.0])
     _, ts = _stores(frames, 64)
-    reg, meas = loop_closure.LoopClosure(LoopClosureConfig()).fetch_and_perform(
-        ts, 1)
+    reg, meas = loop_closure.LoopClosure(
+        tconfig.LoopClosureConfig()).fetch_and_perform(ts, 1)
     assert int(reg.closest_idx) == -1
     assert not bool(reg.is_valid) and not bool(reg.is_converged)
     torch.testing.assert_close(meas, se3.pose_between(

@@ -22,10 +22,9 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "fast_lio_sam_qn_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
-# host-only modules of the JAX package that the port shares (they import
-# no JAX themselves)
-SHARED = {"fast_lio_sam_qn_tpu.utils.sim", "fast_lio_sam_qn_tpu.utils.config",
-          "fast_lio_sam_qn_tpu.configs.presets"}
+# the JAX package and JAX itself: nothing the port or chip_smoke.py runs
+# may import them (the machine with the card has neither)
+FOREIGN = ("jax", "jaxlib", "fast_lio_sam_qn_tpu")
 
 
 def _port_modules():
@@ -48,15 +47,16 @@ def _imported_names(path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and every JAX-package module
-    it shares, leaves ``jax`` out of sys.modules (in a fresh process)."""
-    mods = _port_modules() + sorted(SHARED)
+    """Importing every module of the port leaves ``jax`` and the JAX
+    package out of sys.modules (in a fresh process)."""
+    mods = _port_modules()
     assert "fast_lio_sam_qn_tpu_torch.models.loop_closure" in mods
+    assert "fast_lio_sam_qn_tpu_torch.utils.sim" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib')))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FOREIGN!r})\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -65,18 +65,13 @@ def test_port_imports_no_jax():
 
 
 def test_sources_name_no_jax_module():
-    """The port's sources and chip_smoke.py import nothing of JAX, and of
-    the JAX package only the shared host modules."""
+    """The port's sources and chip_smoke.py import nothing of JAX and
+    nothing of the JAX package."""
     files = glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
     assert len(files) >= 14
     for path in files + [SMOKE]:
         for name in _imported_names(path):
-            root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib"), (path, name)
-            if root == "fast_lio_sam_qn_tpu":
-                assert any(name == s or name.startswith(s + ".") or
-                           s.startswith(name + ".") for s in SHARED), (
-                    path, name)
+            assert name.split(".")[0] not in FOREIGN, (path, name)
 
 
 def test_port_is_lint_clean():
