@@ -9,7 +9,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: a CUDA device is required (there is no CPU fallback); prints
    ``nvidia-smi``'s name and power limit;
-2. builds the hand-written CUDA kernels from ``fast_lio_sam_qn_tpu_torch/csrc``;
+2. builds the hand-written CUDA kernels from ``fast_lio_sam_qn_tpu_torch/csrc``,
+   then holds K1, K1b, K2 and K2b against their plain versions on edge cases
+   of small-integer clouds, where every d2 is exact: ties planted across
+   tile, thread and split-slice edges, masks with holes, an all-masked lane,
+   sizes off every tile, F in {3, 33, 64}, k in {1, 15, 32}; outputs must be
+   equal, K2 must equal K1 and every lane its single-cloud kernel;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, on the benchmark's voxelized clouds at the
    benchmark's capacities and at the pipeline's; K2 must also equal K1 bit
@@ -38,13 +43,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``perform_loop_closure``) on the same store: the same decisions, the
    pose within 1 mm / 1e-3 rad; the batched tick and a pose-graph solve
    repeat bit for bit;
-8. times every kernel and its plain version, one whole attempt per mode,
-   the batched tick against single ticks on the same candidates, the
-   pose-graph solve at full capacity and the pipeline's feeds, with CUDA
-   events (median of 10 calls) or the host clock where a host read ends
-   the call;
-9. prints the kernel table as one JSON line, the card, then the result
-   line.
+8. times every kernel and its plain version, and the kNN kernels' library
+   yardstick (``torch.cdist``, masked, then ``min``: timed here, never used
+   by the port), at the main path's shapes (K1 at F = 33); one whole
+   attempt per mode, the batched tick against single ticks on the same
+   candidates, the pose-graph solve at full capacity and the pipeline's
+   feeds, with CUDA events (median of 10 calls) or the host clock where a
+   host read ends the call;
+9. prints the kernel table as one JSON line (time, launches on the main
+   path, bound from this run's inputs, library time), the card, then the
+   result line.
 """
 from __future__ import annotations
 
@@ -59,6 +67,9 @@ GATE_T, GATE_R = 0.06, 0.01
 REPO = "fast_lio_sam_qn_tpu_torch"
 LANES = 3                   # batched parity at the bench caps
 PIPE_SCANS, PIPE_POINTS = 160, 16384
+# the H100 SXM's published peaks: fp32 outside
+# the tensor cores, and HBM3
+FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -148,6 +159,172 @@ def check_knn(name, kern, plain, q, qm, db, dbm, k):
         f"{float((diff / (1e-4 + 1e-5 * dp.abs())).max()):.3f}), "
         f"{int(mism.sum())} tie index swaps")
     return err
+
+
+def edge_clouds(rng, f, m, n, lanes=3):
+    """``lanes`` clouds of small integers (every product and sum of the d2
+    expansion exact in fp32) with holed masks and a masked tail; lane 1 has
+    no valid query and lane 2 no valid db row.  Rows e - 1 and e of the db
+    are one valid point, and a query sits on it, at every edge e of a
+    thread's rows, a warp's half tile and a tile (so at every split slice
+    edge, which is a tile edge: ops/knn_cuda.py split_lo)."""
+    lo, hi = (-4, 5) if f == 3 else (-2, 3)
+    q = rng.integers(lo, hi, (lanes, m, f)).astype(np.float32)
+    db = rng.integers(lo, hi, (lanes, n, f)).astype(np.float32)
+    qm = rng.random((lanes, m)) > 0.25
+    dm = rng.random((lanes, n)) > 0.25
+    qm[:, m - m // 5:] = False
+    dm[:, n - n // 7:] = False
+    edges = [e for e in range(4, n - n // 7)
+             if e % 128 in (0, 4, 32, 64, 96) or (e < 128 and e % 4 == 0)]
+    for j, e in enumerate(edges):
+        db[:, e] = db[:, e - 1]
+        dm[:, e - 1:e + 1] = True
+        r = (7 * j) % (m - m // 5)
+        q[:, r] = db[:, e]
+        qm[:, r] = True
+    qm[1] = False
+    dm[2] = False
+    q[:, m - m // 5:] = 0.0
+    db[:, n - n // 7:] = 0.0
+    return q, qm, db, dm, len(edges)
+
+
+def same(name, got, want):
+    import torch
+
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: differs")
+
+
+def knn_edge_cases(dev):
+    """K1/K1b (F 3, 33, 64; k 1, 15, 32) and K2/K2b (F 3) on edge_clouds
+    against their plain versions: d2, indices and flags equal; every lane
+    equal to the single-cloud kernel; K2 equal to K1 on Morton-sorted
+    lanes.  Returns the number of cases."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
+
+    rng = np.random.default_rng(17)
+    cases = 0
+    for f in (3, 33, 64):
+        for m, n in ((37, 300), (461, 2477)):
+            q, qm, db, dm, n_edges = edge_clouds(rng, f, m, n)
+            args = [torch.from_numpy(a).to(dev) for a in (q, qm, db, dm)]
+            lanes = [tuple(a[i] for a in args) for i in range(len(q))]
+            splits = (knn_cuda.split_count(len(q), m, n, 1),
+                      knn_cuda.split_count(1, m, n, 1))
+            for k in (1, 15, 32):
+                tag = f"F={f} k={k} {m}x{n}"
+                got = knn_cuda.knn_batched(*args, k)
+                same(f"K1b {tag}", got, knn_cuda.knn_batched_plain(*args, k))
+                for i, one in enumerate(lanes):
+                    same(f"K1 {tag} lane {i}", tuple(g[i] for g in got),
+                         knn_cuda.knn(*one, k))
+                cases += 1
+                if f != 3:
+                    continue
+                so = torch.stack([knn_cuda.morton_order(p, mk)
+                                  for p, mk in zip(args[0], args[1])])
+                do = torch.stack([knn_cuda.morton_order(p, mk)
+                                  for p, mk in zip(args[2], args[3])])
+                srt = (torch.gather(args[0], 1, so[..., None].expand(
+                    -1, -1, 3)), torch.gather(args[1], 1, so),
+                    torch.gather(args[2], 1, do[..., None].expand(-1, -1, 3)),
+                    torch.gather(args[3], 1, do))
+                got = knn_cuda.knn_banded_batched(*srt, k)
+                same(f"K2b {tag}", got,
+                     knn_cuda.knn_banded_batched_plain(*srt, k))
+                same(f"K2b == K1b {tag}", got, knn_cuda.knn_batched(*srt, k))
+                for i in range(len(q)):
+                    one = tuple(a[i] for a in srt)
+                    same(f"K2 {tag} lane {i}", tuple(g[i] for g in got),
+                         knn_cuda.knn_banded(*one, k))
+                cases += 1
+            log(f"kNN edge cases F={f} {m}x{n}: {n_edges} planted ties, "
+                f"splits {splits[0]} batched / {splits[1]} single; K1, K1b"
+                f"{', K2, K2b' if f == 3 else ''} equal their plain "
+                f"versions at k = 1, 15, 32")
+    torch.cuda.synchronize()
+    return cases
+
+
+def knn_library(q, qm, db, dbm):
+    """The library yardstick of a k = 1 kNN kernel: torch.cdist, the masked
+    db rows set to +inf, then min (timed, never used by the port)."""
+    import torch
+
+    d = torch.cdist(q, db)
+    d.masked_fill_(~dbm.unsqueeze(-2), torch.inf)
+    v, i = torch.min(d, dim=-1)
+    return torch.where(qm, v * v, torch.inf), torch.where(qm, i, -1)
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the fp32
+    peak and the bytes over the HBM rate."""
+    t_ops = float(flops) / FP32_FLOPS * 1e3
+    t_bytes = float(nbytes) / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def per_run(mask, rows):
+    """Valid rows in each run of ``rows`` consecutive rows (float64)."""
+    import torch
+
+    pad = torch.nn.functional.pad(mask.double(), (0, -mask.shape[0] % rows))
+    return pad.view(-1, rows).sum(-1)
+
+
+def knn_bound(q, qm, db, dbm, k, keep=None):
+    """A kNN kernel's bound over this run's data: 2F + 2 flops (the cross
+    term's F products and the d2 expansion) for each (valid query, valid db
+    row) pair, or for each pair of a kept (block, tile) for K2 (``keep``,
+    one bitmap per lane); each valid row's F + 1 floats and mask byte read
+    once, every output row written once."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
+
+    if q.dim() == 2:
+        q, qm, db, dbm = q[None], qm[None], db[None], dbm[None]
+        keep = None if keep is None else [keep]
+    f = q.shape[-1]
+    nq = qm.sum(-1).double()
+    nd = dbm.sum(-1).double()
+    if keep is None:
+        pairs = float((nq * nd).sum())
+    else:
+        pairs = 0.0
+        for qml, dml, kp in zip(qm, dbm, keep):
+            cq = per_run(qml, knn_cuda.BAND_BLOCK)
+            cd = per_run(dml, knn_cuda.BAND_TILE)
+            pairs += float(cq @ kp.double() @ cd)
+    nbytes = (float((nq + nd).sum()) * (4 * f + 5)
+              + q.shape[0] * q.shape[1] * k * 8)
+    return bound(pairs * (2 * f + 2), nbytes)
+
+
+def radius_bound(p, qm, dbm, radii, pair_flops, hit_flops, row_in, row_out):
+    """An FPFH kernel's bound over this run's data, per lane: 9 flops of
+    distance test for each (valid query, valid db point) pair plus
+    hit_flops[r] for each pair within radii[r]; each valid row's row_in
+    bytes read once, every output row's row_out bytes written once."""
+    import torch
+
+    if p.dim() == 2:
+        p, qm, dbm = p[None], qm[None], dbm[None]
+    flops = 0.0
+    rows_in = 0.0
+    for pl, ql, dl in zip(p, qm, dbm):
+        a, b = pl[ql].double(), pl[dl].double()
+        d2 = torch.cdist(a, b) ** 2
+        flops += pair_flops * d2.numel()
+        for r, hf in zip(radii, hit_flops):
+            flops += hf * float((d2 <= r * r).sum())
+        rows_in += float(ql.sum())
+    return bound(flops, rows_in * row_in + p.shape[0] * p.shape[1] * row_out)
 
 
 def kernel_parity(store, src_cap, dst_cap, errs):
@@ -584,18 +761,53 @@ def lane_vs_single(pipe, tick):
     log("pgo.optimize (5 GN steps) repeats bit for bit")
 
 
+# the port's kernels, as the profiler names them (csrc/*.cu)
+PORT_KERNELS = ("knn1_kernel", "knnk_kernel", "banded1_kernel",
+                "bandedk_kernel", "tile_bbox_kernel", "merge_slices",
+                "moments_kernel", "spfh_kernel", "agg_kernel")
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time per call of ``fn`` spent in the port's own kernels
+    (torch.profiler, after one warm-up call), without the wrapper's host
+    time and its small torch ops; None if the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in prof.key_averages()
+             if any(k in e.key for k in PORT_KERNELS))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def kernel_ms(timing):
+    """A kernel's time: its device time where the profiler gave one, else
+    the CUDA-event time of its wrapper's call."""
+    return timing[0] if timing[2] is None else timing[2]
+
+
 def time_pairs(timed, card):
     """kernel and plain version in turns (plain, kernel, kernel, plain);
-    the better of each pair of medians."""
+    the better of each pair of medians (CUDA events around the wrapper's
+    call), then the kernels' own device time (``device_ms``)."""
     ms = {}
     for name, (kern, plain) in timed.items():
         a = cuda_ms(plain)
         b = cuda_ms(kern)
         c = cuda_ms(kern)
         d = cuda_ms(plain)
-        ms[name] = (min(b, c), min(a, d))
+        dev = device_ms(kern)
+        ms[name] = (min(b, c), min(a, d), dev)
         log(f"time {name}: kernel {b:.4f} / {c:.4f} ms, plain {a:.4f} / "
-            f"{d:.4f} ms [{card}]")
+            f"{d:.4f} ms; the kernel's device time "
+            f"{'not measured' if dev is None else f'{dev:.4f} ms'} [{card}]")
     return ms
 
 
@@ -665,11 +877,13 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    log(f"kNN edge cases: {knn_edge_cases(dev)} cases equal")
     store, drift = bp.build_store(dev)
     errs = {k: 0.0 for k in launch_counters()}
     inputs, nn_args, sorted_nn, desc_args = kernel_parity(
         store, bp.SRC_CAP, bp.DST_CAP, errs)
-    kernel_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP, errs)
+    pdesc_args = kernel_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP,
+                               errs)[3]
     batched_parity(store, bp.SRC_CAP, bp.DST_CAP, errs)
     # the lanes and shapes a batched tick of the pipeline gives the kernels;
     # the timings reuse them
@@ -682,7 +896,9 @@ def main() -> int:
         cnt.launches = 0
     runs = main_path_runs(store, drift)
     launches = launches_now()
-    log(f"attempt-path launches: {launches}")
+    n_attempts = 2 * len(runs)
+    log(f"attempt-path launches over {n_attempts} attempts: {launches}; "
+        f"per attempt: { {k: v / n_attempts for k, v in launches.items()} }")
     if not all(launches[k] > 0 for k in ("knn", "knn_banded", "moments",
                                          "spfh", "agg")):
         raise AssertionError(f"a kernel of the attempt never launched: "
@@ -699,6 +915,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; "
         f"launches {pipe_launches}")
+    log(f"pipeline launches per batched tick ({len(ticks)} ticks): "
+        f"{ {k: pipe_launches[k] / len(ticks) for k in BATCHED} }")
     for k in BATCHED:
         launches[k] = pipe_launches[k]
     if not all(launches[k] > 0 for k in BATCHED):
@@ -709,8 +927,8 @@ def main() -> int:
 
     p, m, nrm, nv, spfh_n, _ = inputs["src"]
     ms = time_pairs({
-        "knn": (lambda: knn_cuda.knn(*nn_args, 1),
-                lambda: knn.brute_knn(*nn_args, 1)),
+        "knn": (lambda: knn_cuda.knn(*desc_args, 1),
+                lambda: knn.brute_knn(*desc_args, 1)),
         "knn_banded": (lambda: knn_cuda.knn_banded(*sorted_nn, 1),
                        lambda: knn_cuda.knn_banded_plain(*sorted_nn, 1)),
         "moments": (lambda: fs.moments(p, m, 0.9, 0.6),
@@ -720,12 +938,22 @@ def main() -> int:
         "agg": (lambda: fs.fpfh_agg(p, m, nv, spfh_n, 1.5),
                 lambda: fs.fpfh_agg_plain(p, m, nv, spfh_n, 1.5)),
     }, card)
-    k1s = cuda_ms(lambda: knn_cuda.knn(*sorted_nn, 1))
-    log(f"time knn (K1) on K2's sorted GICP clouds: {k1s:.4f} ms [{card}]")
-    k33 = cuda_ms(lambda: knn_cuda.knn(*desc_args, 1))
-    k33p = cuda_ms(lambda: knn.brute_knn(*desc_args, 1))
-    log(f"time knn k=1 F=33 {bp.SRC_CAP}x{bp.DST_CAP}: kernel {k33:.4f} ms, "
-        f"plain {k33p:.4f} ms [{card}]")
+    extra = time_pairs({
+        f"knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP}": (
+            lambda: knn_cuda.knn(*pdesc_args, 1),
+            lambda: knn.brute_knn(*pdesc_args, 1)),
+        f"knn k=1 F=3 {bp.SRC_CAP}x{bp.DST_CAP} (GICP NN)": (
+            lambda: knn_cuda.knn(*nn_args, 1),
+            lambda: knn.brute_knn(*nn_args, 1)),
+        "knn k=1 F=3 on K2's sorted GICP clouds": (
+            lambda: knn_cuda.knn(*sorted_nn, 1),
+            lambda: knn.brute_knn(*sorted_nn, 1))}, card)
+    k33 = extra[f"knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP}"]
+    log(f"time knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP} library "
+        f"yardstick (cdist, mask, min): "
+        f"{cuda_ms(lambda: knn_library(*pdesc_args)):.4f} ms against the "
+        f"kernel's {k33[0]:.4f} ms (call) / {kernel_ms(k33):.4f} ms (device) "
+        f"[{card}]")
     P, M, bnrm, bnv, bspn, bdesc, bval = clouds["src"]
     D, DM = clouds["dst"][:2]
     ddesc, dval = clouds["dst"][5:]
@@ -745,6 +973,37 @@ def main() -> int:
     }, card))
     log(f"batched kernel shapes: B={P.shape[0]}; K1 F=33 {P.shape[1]}x{D.shape[1]}; "
         f"K2 F=3 sorted {P.shape[1]}x{D.shape[1]}; K3-K5 {P.shape[1]} rows")
+
+    knn_in = {"knn": desc_args, "knn_banded": sorted_nn,
+              "knn_b": (bdesc, bval, ddesc, dval), "knn_banded_b": bsorted}
+    library = {k: None for k in launch_counters()}
+    for key, args in knn_in.items():
+        library[key] = cuda_ms(lambda: knn_library(*args))
+        log(f"time {key} library yardstick (cdist, mask, min): "
+            f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
+            f"(call) / {kernel_ms(ms[key]):.4f} ms (device) [{card}]")
+    torch.cuda.empty_cache()
+    bkeep = [knn_cuda.block_tile_keep(*(a[i] for a in bsorted), 1)
+             for i in range(bsorted[0].shape[0])]
+    keep = m & nv
+    bkeep_fp = M & bnv
+    bounds = {
+        "knn": knn_bound(*desc_args, 1),
+        "knn_banded": knn_bound(*sorted_nn, 1, keep=knn_cuda.block_tile_keep(
+            *sorted_nn, 1)),
+        "moments": radius_bound(p, m, m, (0.9, 0.6), 9, (16, 10), 13, 80),
+        "spfh": radius_bound(p, m, keep, (1.5,), 9, (75,), 26, 136),
+        "agg": radius_bound(p, m, keep, (1.5,), 9, (68,), 146, 136),
+        "knn_b": knn_bound(bdesc, bval, ddesc, dval, 1),
+        "knn_banded_b": knn_bound(*bsorted, 1, keep=bkeep),
+        "moments_b": radius_bound(P, M, M, (0.9, 0.6), 9, (16, 10), 13, 80),
+        "spfh_b": radius_bound(P, M, bkeep_fp, (1.5,), 9, (75,), 26, 136),
+        "agg_b": radius_bound(P, M, bkeep_fp, (1.5,), 9, (68,), 146, 136),
+    }
+    for key, (b_ms, by) in bounds.items():
+        log(f"bound {key}: {b_ms:.5f} ms by {by}; kernel "
+            f"{kernel_ms(ms[key]):.4f} ms (the bound is "
+            f"{b_ms / kernel_ms(ms[key]):.3f} of it)")
     for label, lc in runs.items():
         t = cuda_ms(lambda: lc.fetch_and_perform(store, 1))
         log(f"time attempt {label}: {t:.3f} ms per fetch_and_perform "
@@ -770,7 +1029,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{REPO}/csrc/{src}",
          "replaces": rep, "launches": launches[key],
-         "max_abs_err": errs[key], "ms": ms[key][0], "plain_ms": ms[key][1]}
+         "max_abs_err": errs[key], "ms": kernel_ms(ms[key]),
+         "plain_ms": ms[key][1],
+         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+         "library_ms": library[key]}
         for name, src, rep, key in table]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,6 @@ __device__ __forceinline__ float cross3(float qx, float qy, float qz, float vx, 
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace flsq

@@ -34,11 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every pointer and the stream as void*, sizes as int; each
-# kernel takes a batch count b (its grid's y axis) before its sizes
+# kernel takes a batch count b (its grid's y axis) before its sizes; the kNN
+# kernels also take the lanes' extents and, at k = 1, a split count (grid z)
+# with its partials
 _SIGNATURES = {
-    "flsq_knn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "flsq_knn_banded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                        _P),
+    "flsq_knn": (_P,) * 8 + (_I,) * 6 + (_P,) * 5,
+    "flsq_knn_banded": (_P,) * 8 + (_I,) * 5 + (_P,) * 6,
     "flsq_fpfh_moments": (_P, _P, _P, _I, _I, _F, _F, _P, _P),
     "flsq_fpfh_spfh": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
     "flsq_fpfh_agg": (_P, _P, _P, _P, _I, _I, _F, _P, _P),

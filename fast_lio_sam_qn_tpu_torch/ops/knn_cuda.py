@@ -18,6 +18,12 @@ The port returns exact (d2, idx) pairs: there is no packed-key quantization
 and so no ``MAX_DB`` cap.  A CPU tensor takes the plain version (ops/knn.py
 ``brute_knn``, restricted to the kept tiles for K2); a CUDA tensor launches
 the kernel or raises.
+
+Every launch gets each lane's extents (``lane_extents``, on the device): a
+kernel skips query blocks and db rows past them.  At k = 1 the kernels may
+split each lane's db range (K1) or kept tiles (K2) over ``split_count``
+slices on the grid's z axis (``split_lo``) and merge the slices' (d2, idx)
+partials lexicographically, so the result does not depend on the split.
 """
 from __future__ import annotations
 
@@ -30,14 +36,65 @@ MAX_F = 64
 MAX_K = 32
 MORTON_CELL = 0.75   # locality cell [m], as pallas_knn._MORTON_CELL
 PRUNE_SLACK = 1.03   # as pallas_knn._PRUNE_SLACK
-BAND_BLOCK = 64      # K2's query block (csrc/knn_banded.cu kBlock)
-BAND_TILE = 128      # K2's db tile (csrc/knn_banded.cu kTile)
+BAND_BLOCK = 64      # query rows per CTA, K2's keep-rule block (kNnBlock)
+BAND_TILE = 128      # db rows per tile, K2's keep-rule tile (kNnTile)
 BAND_MAX_TILES = 4096
+MAX_SPLITS = 8             # csrc/knn_tile.cuh kMaxSplits
+SPLIT_CTAS = 4 * 132       # a k = 1 launch aims at 4 CTAs on each of 132 SMs
+
+
+def lane_extents(mask: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 of a (B, N) mask: 1 + the index of each lane's last valid
+    row, 0 for a lane without one.  Every row at or past it is masked, so a
+    kernel may stop there.  Computed on the mask's device: no host read."""
+    n = mask.shape[-1]
+    if n == 0:
+        return torch.zeros(mask.shape[:-1], dtype=torch.int32,
+                           device=mask.device)
+    rows = torch.arange(1, n + 1, dtype=torch.int32, device=mask.device)
+    return torch.amax(torch.where(mask, rows, 0), dim=-1)
+
+
+def split_lo(units: int, splits: int, z: int) -> int:
+    """The split plan, csrc/knn_tile.cuh split_lo: of ``units`` (K1: the
+    db tiles below a lane's extent, K2: a query block's kept tiles), slice
+    z of ``splits`` covers [split_lo(units, splits, z), split_lo(units,
+    splits, z + 1))."""
+    return units * z // splits
+
+
+def split_count(b: int, m: int, n: int, k: int) -> int:
+    """Grid z of a launch over B lanes of (M, .) queries and (N, .) dbs:
+    at k = 1 enough slices for B * ceil(M / 64) query blocks to give
+    SPLIT_CTAS CTAs, at most MAX_SPLITS and one per db tile; 1 at k > 1.
+    Taken from the padded shapes, so it needs no host read."""
+    if k > 1:
+        return 1
+    blocks = b * -(-m // BAND_BLOCK)
+    return max(1, min(MAX_SPLITS, -(-n // BAND_TILE), -(-SPLIT_CTAS // blocks)))
+
+
+def _extents_and_scratch(qmask, dbmask, k: int):
+    """(q_end, db_end, splits, part_d, part_i) of one launch: the lanes'
+    extents and, when the launch splits, its (splits, B, M) partials."""
+    b, m = qmask.shape
+    splits = split_count(b, m, dbmask.shape[1], k)
+    part_d = part_i = None
+    if splits > 1:
+        part_d = torch.empty((splits, b, m), dtype=torch.float32,
+                             device=qmask.device)
+        part_i = torch.empty((splits, b, m), dtype=torch.int32,
+                             device=qmask.device)
+    return lane_extents(qmask), lane_extents(dbmask), splits, part_d, part_i
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_knn(queries, qmask, db, dbmask, k: int):
-    """K1 over (B, M, F) queries and (B, N, F) dbs: one launch, the batch
-    on the grid's y axis."""
+    """K1 over (B, M, F) queries and (B, N, F) dbs: one launch (and a merge
+    of the slices when it splits), the batch on the grid's y axis."""
     b, m, f = queries.shape
     n = db.shape[1]
     kernels.require_batch(b)
@@ -55,12 +112,16 @@ def _launch_knn(queries, qmask, db, dbmask, k: int):
     dd = sq_norms(db)
     out_d = torch.empty((b, m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, m, k), dtype=torch.int32, device=dev)
+    q_end, db_end, splits, part_d, part_i = _extents_and_scratch(
+        qmask, dbmask, k)
     lib = kernels.load_library()
     with torch.cuda.device(dev):
         status = lib.flsq_knn(
             queries.data_ptr(), qq.data_ptr(), qmask.data_ptr(),
-            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), b, m, n, f, k,
-            out_d.data_ptr(), out_i.data_ptr(), kernels.stream(queries))
+            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), q_end.data_ptr(),
+            db_end.data_ptr(), b, m, n, f, k, splits, _ptr(part_d),
+            _ptr(part_i), out_d.data_ptr(), out_i.data_ptr(),
+            kernels.stream(queries))
     kernels.check_status(status, "knn")
     return out_d, out_i, out_i >= 0
 
@@ -185,8 +246,9 @@ def knn_banded_plain(queries, qmask, db, dbmask, k: int):
 
 
 def _launch_banded(queries, qmask, db, dbmask, k: int):
-    """K2 over (B, M, 3) queries and (B, N, 3) dbs: one tile-box launch and
-    one search launch, the batch on the grid's y axis."""
+    """K2 over (B, M, 3) queries and (B, N, 3) dbs: one tile-box launch,
+    one search launch (and a merge of the slices when it splits), the batch
+    on the grid's y axis."""
     b, m, _ = queries.shape
     n = db.shape[1]
     n_tiles = -(-n // BAND_TILE)
@@ -207,12 +269,15 @@ def _launch_banded(queries, qmask, db, dbmask, k: int):
     tbox = torch.empty((b, n_tiles, 6), dtype=torch.float32, device=dev)
     out_d = torch.empty((b, m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, m, k), dtype=torch.int32, device=dev)
+    q_end, db_end, splits, part_d, part_i = _extents_and_scratch(
+        qmask, dbmask, k)
     lib = kernels.load_library()
     with torch.cuda.device(dev):
         status = lib.flsq_knn_banded(
             queries.data_ptr(), qq.data_ptr(), qmask.data_ptr(),
-            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), b, m, n, k,
-            tbox.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            db.data_ptr(), dd.data_ptr(), dbmask.data_ptr(), q_end.data_ptr(),
+            db_end.data_ptr(), b, m, n, k, splits, tbox.data_ptr(),
+            _ptr(part_d), _ptr(part_i), out_d.data_ptr(), out_i.data_ptr(),
             kernels.stream(queries))
     kernels.check_status(status, "knn_banded")
     return out_d, out_i, out_i >= 0

@@ -225,3 +225,131 @@ def test_banded_masked_query_block_and_db():
                                  torch.ones(128, 3),
                                  torch.zeros(128, dtype=torch.bool))
     assert not bool(v.any()) and bool(torch.isinf(d).all())
+
+
+# ---------------------------------------------------------------------------
+# The Python side of the k = 1 kernels' design (csrc/knn_tile.cuh): the
+# lanes' extents, the split plan and a plain model of split-and-merge
+# ---------------------------------------------------------------------------
+
+def test_lane_extents_last_valid_row():
+    """1 + the last valid index of each lane, 0 for an all-masked lane."""
+    mask = torch.tensor([[True, False, True, False, False],
+                         [False, False, False, False, False],
+                         [True, True, True, True, True],
+                         [False, False, False, False, True]])
+    ext = knn_cuda.lane_extents(mask)
+    assert ext.dtype == torch.int32
+    assert ext.tolist() == [3, 0, 5, 5]
+    empty = knn_cuda.lane_extents(torch.zeros((2, 0), dtype=torch.bool))
+    assert empty.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_lane_extents_random_masks(seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((6, 300)) < rng.random((6, 1))
+    mask[0] = False
+    mask[1, 250:] = False
+    want = [max(np.nonzero(row)[0], default=-1) + 1 for row in mask]
+    assert knn_cuda.lane_extents(torch.from_numpy(mask)).tolist() == want
+
+
+@pytest.mark.parametrize("splits", range(1, knn_cuda.MAX_SPLITS + 1))
+def test_split_plan_covers_every_active_row_once(splits):
+    """split_lo, the formula of csrc/knn_tile.cuh: K1's slices of the db
+    tiles below an extent (tile-aligned, ascending) hold every row under
+    the extent exactly once, for every extent 0..N; K2's slices of a kept
+    list hold every entry exactly once."""
+    tile = knn_cuda.BAND_TILE
+    for end in range(0, 5 * tile + 3):
+        tiles = -(-end // tile)
+        hits = np.zeros(end, int)
+        prev = 0
+        for z in range(splits):
+            lo = knn_cuda.split_lo(tiles, splits, z) * tile
+            hi = min(knn_cuda.split_lo(tiles, splits, z + 1) * tile, end)
+            assert lo % tile == 0 and lo >= prev
+            hits[lo:hi] += 1
+            prev = lo
+        assert np.all(hits == 1), (end, splits)
+    for units in range(0, 70):
+        slices = [range(knn_cuda.split_lo(units, splits, z),
+                        knn_cuda.split_lo(units, splits, z + 1))
+                  for z in range(splits)]
+        assert sorted(u for s in slices for u in s) == list(range(units))
+
+
+def test_split_count_fills_the_card():
+    """Grid z: 1 at k > 1 or once the query blocks alone give SPLIT_CTAS
+    CTAs; never more slices than db tiles or MAX_SPLITS."""
+    assert knn_cuda.split_count(1, 4352, 5632, 1) == knn_cuda.MAX_SPLITS
+    assert knn_cuda.split_count(1, 16384, 32768, 1) == 3
+    assert knn_cuda.split_count(4, 16384, 32768, 1) == 1
+    assert knn_cuda.split_count(1, 4352, 5632, 15) == 1
+    assert knn_cuda.split_count(1, 37, 300, 1) == 3
+    assert knn_cuda.split_count(1, 37, 0, 1) == 1
+
+
+def _split_merge_nn(q, qm, db, dm, splits):
+    """A plain model of the k = 1 kernels' split: brute_knn over the db
+    rows of each slice (split_lo over the tiles below the extent), then
+    the lexicographic (d2, idx) minimum of the slices' partials."""
+    tile = knn_cuda.BAND_TILE
+    end = int(knn_cuda.lane_extents(dm[None])[0])
+    tiles = -(-end // tile)
+    best_d = torch.full((q.shape[0],), torch.inf)
+    best_i = torch.full((q.shape[0],), -1, dtype=torch.int32)
+    for z in range(splits):
+        lo = knn_cuda.split_lo(tiles, splits, z) * tile
+        hi = min(knn_cuda.split_lo(tiles, splits, z + 1) * tile, end)
+        part = dm.clone()
+        part[:lo] = False
+        part[hi:] = False
+        d, i, _ = knn.brute_knn(q, qm, db, part, 1)
+        d, i = d[:, 0], i[:, 0]
+        better = (d < best_d) | ((d == best_d) & (i < best_i))
+        best_d = torch.where(better, d, best_d)
+        best_i = torch.where(better, i, best_i)
+    return best_d, best_i
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+def test_split_and_merge_model_equals_brute(splits):
+    """Small-integer clouds (exact d2, so ties are exact) with the same
+    point on both sides of every tile edge and a query on it: the merged
+    slices give brute_knn's first minimum, index for index."""
+    rng = np.random.default_rng(splits)
+    m, n, tile = 90, 9 * knn_cuda.BAND_TILE + 50, knn_cuda.BAND_TILE
+    q = rng.integers(-3, 4, (m, 3)).astype(np.float32)
+    db = rng.integers(-3, 4, (n, 3)).astype(np.float32)
+    qm, dm = rng.random(m) > 0.2, rng.random(n) > 0.2
+    dm[n - 70:] = False
+    for j, e in enumerate(range(tile, n - 70, tile)):
+        db[e] = db[e - 1] = (10.0 + j, 0.0, 0.0)
+        dm[e - 1:e + 1] = True
+        q[j] = db[e]
+        qm[j] = True
+    args = tuple(map(torch.from_numpy, (q, qm, db, dm)))
+    d, i = _split_merge_nn(*args, splits)
+    want_d, want_i, _ = knn.brute_knn(*args, 1)
+    assert torch.equal(d, want_d[:, 0]) and torch.equal(i, want_i[:, 0])
+    edges = range(tile, n - 70, tile)
+    assert i[:len(edges)].tolist() == [e - 1 for e in edges]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_brute_knn_holed_masks_match_xla(k):
+    """Masks with holes, a masked tail and a masked-out query half: the
+    port's brute_knn against the JAX package's brute path."""
+    q, qm, db, dm = _inputs(300, 900, 3, seed=11 + k)
+    qm[150:] = False
+    dm[::3] = False
+    dm[600:] = False
+    want = jknn.brute_knn(*map(jnp.asarray, (q, qm, db, dm)), k=k)
+    got = knn.brute_knn(*map(torch.from_numpy, (q, qm, db, dm)), k)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=2e-3, atol=1e-5)
+    assert not bool(got[2][150:].any())

@@ -76,7 +76,7 @@ def test_sources_name_no_jax_module():
 
 def test_port_is_lint_clean():
     csrc = sorted(glob.glob(os.path.join(PKG, "csrc", "*")))
-    assert len(csrc) == 6
+    assert len(csrc) == 7
     errors = lint_paths([PKG, SMOKE] + csrc)
     assert not errors, "\n".join(errors)
 
