@@ -4,6 +4,8 @@ on one CUDA card.
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --trace-fpfh-order   # phase 6 on both K4 / K5
+                                               # row orders, loop events
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -18,7 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, on the benchmark's voxelized clouds at the
    benchmark's capacities and at the pipeline's; K2 must also equal K1 bit
-   for bit on the Morton-sorted clouds;
+   for bit on the Morton-sorted clouds.  K4 and K5 run on the
+   Morton-sorted clouds with one shared radius prune, as ``fpfh_radius``
+   calls them: masked query rows must be zero, K4 on the unsorted cloud
+   must equal it after unpermuting, K5's count column must equal K4's,
+   and a repeat must be bit-identical; the share of (block, tile) pairs
+   that the keep rule keeps is printed;
 4. drives the main path, ``LoopClosure(cfg, src_cap, dst_cap)
    .fetch_and_perform(store, 1)`` on a two-keyframe store, in both matching
    modes and at the pipeline's capacities, with every launch counter reset
@@ -30,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the single-cloud kernel on each lane: B = 3 lanes at the bench's
    padding, and at the pipeline's padding as many lanes as the pipeline's
    batched tick runs (``loop_batch = 4``); K2 batched must also equal K1
-   batched bit for bit on Morton-sorted lanes;
+   batched bit for bit on Morton-sorted lanes; K4b and K5b as K4 and K5
+   in phase 3, on Morton-sorted lanes, and on four edge-case lanes: holed
+   (both extents below N), all-masked, 500 m from the origin, and with
+   duplicate points;
 6. drives the pipeline, ``FastLioSamQnPipeline(cfg).feed(...)``, over a
    simulated revisiting run at full width (16,384-point scans, default
    capacities, ``loop_batch = 4``) with every launch counter reset just
@@ -52,7 +62,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    host read ends the call;
 9. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
-   result line.
+   result line.  K4 and K5 skip what the radius prune rules out, so their
+   bound counts the math of the pairs within the radius only (the
+   all-pairs figure is logged beside it).
 """
 from __future__ import annotations
 
@@ -60,6 +72,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -327,6 +340,166 @@ def radius_bound(p, qm, dbm, radii, pair_flops, hit_flops, row_in, row_out):
     return bound(flops, rows_in * row_in + p.shape[0] * p.shape[1] * row_out)
 
 
+class FpfhSorted(NamedTuple):
+    """K4 / K5's operands on Morton-sorted lanes, as ``fpfh_radius``
+    gives them to the kernels: (B, N, ...) points, mask, normals, n_valid,
+    the plain version's normalized SPFH, the shared radius prune, and the
+    share of (block, tile) pairs below the extents that the keep rule
+    keeps."""
+    p: object
+    m: object
+    n: object
+    v: object
+    spn: object
+    prune: object
+    share: float
+
+
+def check_fpfh_rows(name, got, want, qmask, atol, rtol, explain):
+    """A K4 / K5 output against its plain version under the kernels'
+    contract: rows of masked queries are zero; valid rows within atol /
+    rtol, each row beyond accepted by ``explain(rows)`` (indices of the
+    full output)."""
+    import torch
+
+    if bool(got[~qmask].any()):
+        raise AssertionError(f"{name}: a masked query row is not zero")
+    valid = torch.nonzero(qmask).flatten()
+    if len(valid) == 0:
+        log(f"{name}: no valid query; every row zero")
+        return 0.0
+    return check_rows(name, got[valid], want[valid], atol, rtol,
+                      lambda r: explain(valid[r]))
+
+
+def kept_share(p, m, v):
+    """Of the (query block, db tile) pairs below the lane's extents, the
+    share that K4 / K5's keep rule keeps (``radius_tile_keep``)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
+
+    keep = m & v
+    qb = -(-int(knn_cuda.lane_extents(m)) // fs.FP_BLOCK)
+    tb = -(-int(knn_cuda.lane_extents(keep)) // fs.FP_TILE)
+    if qb == 0 or tb == 0:
+        return 0.0
+    kept = fs.radius_tile_keep(p, m, keep, 1.5)[:qb, :tb]
+    return float(torch.mean(kept.float()))
+
+
+def fpfh_parity(tag, P, M, NRM, NV, errs=None, batched=True, far=()):
+    """K4 / K5 (``batched``: K4b / K5b) on the Morton-sorted lanes of
+    (B, N) clouds, as ``fpfh_radius`` / ``fpfh_radius_batched`` call them,
+    one radius prune shared by both: against the plain versions on every
+    lane (masked query rows zero; valid rows within K4's rules, K5's
+    1e-2 / 1e-4 and radius boundaries; for the lanes in ``far``, a
+    boundary band widened by the fp32 expansion's error); K4 on the
+    unsorted lanes equal after unpermuting; K5's count column equal to
+    K4's; with ``batched``, each lane equal to the single kernel; a repeat
+    bit-identical.  Returns ``FpfhSorted``."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
+    from fast_lio_sam_qn_tpu_torch.parity import (radius_boundary_rows,
+                                                  spfh_rows_explained)
+
+    sfx = "b" if batched else ""
+    order = knn_cuda.morton_order_batched(P, M)
+    p, m, n, v = (knn_cuda.take_rows(x, order) for x in (P, M, NRM, NV))
+    prune = fs.radius_prune(p, m, v)
+
+    def k4(*a, prune=None):
+        if batched:
+            return fs.spfh_batched(*a, 1.5, prune)
+        return fs.spfh(*(x[0] for x in a), 1.5, prune)[None]
+
+    def k5(*a, prune=None):
+        if batched:
+            return fs.fpfh_agg_batched(*a, 1.5, prune)
+        return fs.fpfh_agg(*(x[0] for x in a), 1.5, prune)[None]
+
+    sp_k = k4(p, m, n, v, prune=prune)
+    sp_p = fs.spfh_batched_plain(p, m, n, v, 1.5)
+    spn = (sp_p[..., :33] / torch.clamp(sp_p[..., 33:], min=1.0)
+           ).contiguous()
+    ag_k = k5(p, m, v, spn, prune=prune)
+    ag_p = fs.fpfh_agg_batched_plain(p, m, v, spn, 1.5)
+    for i in range(P.shape[0]):
+        keep, wide = m[i] & v[i], i in far
+        err = check_fpfh_rows(
+            f"K4{sfx} {tag} lane {i}", sp_k[i], sp_p[i], m[i], 1e-3, 0.0,
+            lambda r: spfh_rows_explained(sp_k[i], sp_p[i], p[i], n[i], keep,
+                                          r, 1.5, wide))
+        if errs is not None:
+            errs["spfh" + "_b" * batched] = max(
+                errs["spfh" + "_b" * batched], err)
+        err = check_fpfh_rows(
+            f"K5{sfx} {tag} lane {i}", ag_k[i], ag_p[i], m[i], 1e-2, 1e-4,
+            lambda r: radius_boundary_rows(p[i], keep, r, (1.5,), wide))
+        if errs is not None:
+            errs["agg" + "_b" * batched] = max(errs["agg" + "_b" * batched],
+                                               err)
+    if not torch.equal(knn_cuda.put_rows(sp_k, order), k4(P, M, NRM, NV)):
+        raise AssertionError(f"K4{sfx} {tag}: sorted and unsorted input "
+                             f"differ after unpermuting")
+    if not torch.equal(ag_k[..., 33], sp_k[..., 33]):
+        raise AssertionError(f"K5{sfx} {tag}: count column differs from "
+                             f"K4's")
+    same(f"K4{sfx} {tag} repeat", (k4(p, m, n, v, prune=prune),), (sp_k,))
+    same(f"K5{sfx} {tag} repeat", (k5(p, m, v, spn, prune=prune),), (ag_k,))
+    if batched:
+        same_lanes(f"K4b {tag}", sp_k,
+                   lambda i: fs.spfh(p[i], m[i], n[i], v[i], 1.5))
+        same_lanes(f"K5b {tag}", ag_k,
+                   lambda i: fs.fpfh_agg(p[i], m[i], v[i], spn[i], 1.5))
+    share = float(np.mean([kept_share(p[i], m[i], v[i])
+                           for i in range(P.shape[0])]))
+    log(f"K4{sfx} / K5{sfx} {tag}: Morton-sorted lanes; masked rows zero, "
+        f"sorted == unsorted (K4), count columns equal, repeats equal"
+        f"{', every lane == its single kernel' if batched else ''}; the "
+        f"keep rule keeps {share:.4f} of the (block, tile) pairs below the "
+        f"extents")
+    return FpfhSorted(p, m, n, v, spn, prune, share)
+
+
+def fpfh_edge_cases(store):
+    """K4b / K5b on four lanes of the bench source at the bench padding:
+    holed (30 % of rows dropped and the last fifth masked, so both extents
+    end before N), all-masked, moved 500 m from the origin, and with 300
+    valid points duplicated (d2 = 0 pairs)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+
+    src, sm = _single_frame(store, 1, bp.SRC_CAP, 0.3)
+    n = src.shape[0]
+    g = torch.Generator(device=src.device).manual_seed(21)
+    holed = sm & (torch.rand(n, generator=g, device=src.device) > 0.3)
+    holed[n - n // 5:] = False
+    idx = torch.nonzero(sm).flatten()
+    dup = src.clone()
+    dup[idx[300:600]] = src[idx[:300]]
+    far = src + torch.tensor([500.0, -300.0, 40.0], device=src.device)
+    P = torch.stack([src, src, far, dup]).contiguous()
+    M = torch.stack([holed, torch.zeros_like(sm), sm, sm])
+    nrm, nv = [], []
+    for i in range(4):
+        mom = fs.moments_plain(P[i], M[i], 0.9, 0.6)
+        n_, v_, _, _ = fs.moments_to_normals_covs(mom, P[i], M[i], None)
+        nrm.append(n_)
+        nv.append(v_)
+    srt = fpfh_parity("edge cases (holed, all-masked, 500 m, duplicates)",
+                      P, M, torch.stack(nrm).contiguous(), torch.stack(nv),
+                      far=(2,))
+    torch.cuda.synchronize()
+    return srt.share
+
+
 def kernel_parity(store, src_cap, dst_cap, errs):
     """Every kernel against its plain version on the voxelized clouds
     padded to (src_cap, dst_cap); K2 also against K1, bit for bit.
@@ -336,8 +509,7 @@ def kernel_parity(store, src_cap, dst_cap, errs):
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda, se3
-    from fast_lio_sam_qn_tpu_torch.parity import (radius_boundary_rows,
-                                                  spfh_rows_explained)
+    from fast_lio_sam_qn_tpu_torch.parity import radius_boundary_rows
 
     caps = f"@{src_cap}/{dst_cap}"
     src, sm = _single_frame(store, 1, src_cap, 0.3)
@@ -351,25 +523,14 @@ def kernel_parity(store, src_cap, dst_cap, errs):
             f"K3 moments {tag}{caps}", mom_k, mom_p, 1e-3, 1e-5,
             lambda r: radius_boundary_rows(p, m, r, (0.9, 0.6))))
         nrm, nv, _, _ = fs.moments_to_normals_covs(mom_p, p, m, vp)
-        keep = m & nv
-        sp_k = fs.spfh(p, m, nrm, nv, 1.5)
-        sp_p = fs.spfh_plain(p, m, nrm, nv, 1.5)
-        errs["spfh"] = max(errs["spfh"], check_rows(
-            f"K4 spfh {tag}{caps}", sp_k, sp_p, 1e-3, 0.0,
-            lambda r: spfh_rows_explained(sp_k, sp_p, p, nrm, keep, r, 1.5)))
-        spfh_n = (sp_p[:, :33] / torch.clamp(sp_p[:, 33:], min=1.0)
-                  ).contiguous()
-        ag_k = fs.fpfh_agg(p, m, nv, spfh_n, 1.5)
-        ag_p = fs.fpfh_agg_plain(p, m, nv, spfh_n, 1.5)
-        errs["agg"] = max(errs["agg"], check_rows(
-            f"K5 aggregation {tag}{caps}", ag_k, ag_p, 1e-2, 1e-4,
-            lambda r: radius_boundary_rows(p, keep, r, (1.5,))))
-        inputs[tag] = (p, m, nrm, nv, spfh_n, vp)
+        srt = fpfh_parity(f"{tag}{caps}", p[None], m[None], nrm[None],
+                          nv[None], errs, batched=False)
+        inputs[tag] = (p, m, vp, srt)
 
     desc_s, val_s, _ = fs.fpfh_radius(src, sm, 0.9, 1.5,
-                                      viewpoint=inputs["src"][5])
+                                      viewpoint=inputs["src"][2])
     desc_d, val_d, _ = fs.fpfh_radius(dst, dm, 0.9, 1.5,
-                                      viewpoint=inputs["dst"][5])
+                                      viewpoint=inputs["dst"][2])
     moved = se3.transform_points(src, se3.se3_exp(torch.tensor(
         [0.0, 0.0, 0.1, 0.3, -0.2, 0.0], device=src.device))).contiguous()
     for name, args in (
@@ -446,8 +607,7 @@ def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES):
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda, se3
-    from fast_lio_sam_qn_tpu_torch.parity import (radius_boundary_rows,
-                                                  spfh_rows_explained)
+    from fast_lio_sam_qn_tpu_torch.parity import radius_boundary_rows
 
     caps = f"B={lanes} @{src_cap}/{dst_cap}"
     src, sm = _single_frame(store, 1, src_cap, 0.3)
@@ -471,35 +631,18 @@ def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES):
                                                       vp[i])
             nrm.append(n_)
             nv.append(v_)
-        nrm, nv = torch.stack(nrm).contiguous(), torch.stack(nv)
-        sp_k = fs.spfh_batched(P, M, nrm, nv, 1.5)
-        sp_p = fs.spfh_batched_plain(P, M, nrm, nv, 1.5)
-        same_lanes(f"K4 batched {tag}{caps}", sp_k,
-                   lambda i: fs.spfh(P[i], M[i], nrm[i], nv[i], 1.5))
-        spn = (sp_p[..., :33] / torch.clamp(sp_p[..., 33:], min=1.0)
-               ).contiguous()
-        ag_k = fs.fpfh_agg_batched(P, M, nv, spn, 1.5)
-        ag_p = fs.fpfh_agg_batched_plain(P, M, nv, spn, 1.5)
-        same_lanes(f"K5 batched {tag}{caps}", ag_k,
-                   lambda i: fs.fpfh_agg(P[i], M[i], nv[i], spn[i], 1.5))
-        for i in range(lanes):
-            keep = M[i] & nv[i]
-            errs["spfh_b"] = max(errs["spfh_b"], check_rows(
-                f"K4 batched {tag} lane {i} {caps}", sp_k[i], sp_p[i], 1e-3,
-                0.0, lambda r: spfh_rows_explained(
-                    sp_k[i], sp_p[i], P[i], nrm[i], keep, r, 1.5)))
-            errs["agg_b"] = max(errs["agg_b"], check_rows(
-                f"K5 batched {tag} lane {i} {caps}", ag_k[i], ag_p[i], 1e-2,
-                1e-4, lambda r: radius_boundary_rows(P[i], keep, r, (1.5,))))
+        srt = fpfh_parity(f"{tag} {caps}", P, M,
+                          torch.stack(nrm).contiguous(), torch.stack(nv),
+                          errs)
         desc, val, _ = fs.fpfh_radius_batched(P, M, 0.9, 1.5, vp)
-        clouds[tag] = (P, M, nrm, nv, spn, desc, val)
+        clouds[tag] = (P, M, srt, desc, val)
 
     P, M = clouds["src"][:2]
     D, DM = clouds["dst"][:2]
     moved = se3.transform_points(P, se3.se3_exp(torch.tensor(
         [0.0, 0.0, 0.1, 0.3, -0.2, 0.0], device=P.device))).contiguous()
-    desc_s, val_s = clouds["src"][5:]
-    desc_d, val_d = clouds["dst"][5:]
+    desc_s, val_s = clouds["src"][3:]
+    desc_d, val_d = clouds["dst"][3:]
     for name, args in (
             ("K1 batched k=1 F=3 (GICP NN)", (moved, M, D, DM, 1)),
             ("K1 batched k=1 F=33 (matching)", (desc_s, val_s, desc_d,
@@ -850,6 +993,65 @@ def pipeline_timings(pipe, multi, feeds, card):
     torch.cuda.synchronize()
 
 
+def caller_order_route(points, mask, normals, n_valid, radius: float,
+                       batched: bool = True):
+    """``spfh_agg_sorted`` without the sort: K4 and K5 on the caller's row
+    order.  K5 then sums each row's in-radius pairs in ascending caller
+    order with the same fmaf chain as the unpruned K5 before the sorted
+    route, so this route gives that kernel's bits."""
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+
+    prune = fs.radius_prune(points, mask, n_valid)
+    if batched:
+        raw = fs.spfh_batched(points, mask, normals, n_valid, radius, prune)
+        return raw, fs.fpfh_agg_batched(points, mask, n_valid,
+                                        fs._normalized_spfh(raw), radius,
+                                        prune)
+    raw = fs.spfh(points[0], mask[0], normals[0], n_valid[0], radius, prune)
+    agg = fs.fpfh_agg(points[0], mask[0], n_valid[0],
+                      fs._normalized_spfh(raw), radius, prune)
+    return raw[None], agg[None]
+
+
+def trace_fpfh_order(dev):
+    """``--trace-fpfh-order``: the pipeline run of phase 6 on the
+    Morton-sorted route and on the caller's row order, every loop event of
+    both, and the first event where they differ."""
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation
+
+    sorted_route = fs.spfh_agg_sorted
+    events = {}
+    for label, route in (("Morton-sorted", sorted_route),
+                         ("caller order", caller_order_route)):
+        fs.spfh_agg_sorted = route
+        try:
+            pipe, gt_kf, _, ticks, _ = pipeline_run(dev)
+        finally:
+            fs.spfh_agg_sorted = sorted_route
+        _, corrected = pipe.get_trajectories()
+        ev = [(e.tick_time, e.query_idx, e.closest_idx, e.score, e.accepted)
+              for e in pipe.loop_events]
+        events[label] = ev
+        log(f"trace {label}: {pipe.current_kf_idx} keyframes, {len(ev)} "
+            f"loop events, {sum(e[4] for e in ev)} accepted, committed "
+            f"{pipe.loop_idx_pairs}, ATE "
+            f"{evaluation.ate_rmse(corrected, gt_kf, align=False)!r} m")
+        for e in ev:
+            log(f"  t={e[0]} {e[1]} -> {e[2]}: score {e[3]!r}, accepted "
+                f"{e[4]}")
+        log(f"  K2b launches (GICP iterations + 1) per tick: "
+            f"{[(q, c, d['knn_banded_b']) for q, c, d in ticks]}")
+    a, b = events.values()
+    moved = [i for i, (x, y) in enumerate(zip(a, b))
+             if (x[1], x[2], x[4]) != (y[1], y[2], y[4])]
+    rel = max((abs(x[3] - y[3]) / max(abs(y[3]), 1e-30)
+               for x, y in zip(a, b)), default=0.0)
+    log(f"trace: {len(a)} / {len(b)} events; decisions (query, candidate, "
+        f"accepted) differ at events {moved}; the largest relative score "
+        f"difference is {rel:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -877,6 +1079,9 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    if "--trace-fpfh-order" in sys.argv[1:]:
+        trace_fpfh_order(dev)
+        return 0
     log(f"kNN edge cases: {knn_edge_cases(dev)} cases equal")
     store, drift = bp.build_store(dev)
     errs = {k: 0.0 for k in launch_counters()}
@@ -885,6 +1090,7 @@ def main() -> int:
     pdesc_args = kernel_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP,
                                errs)[3]
     batched_parity(store, bp.SRC_CAP, bp.DST_CAP, errs)
+    fpfh_edge_cases(store)
     # the lanes and shapes a batched tick of the pipeline gives the kernels;
     # the timings reuse them
     clouds, bsorted = batched_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP,
@@ -925,7 +1131,9 @@ def main() -> int:
     multi = check_pipeline(pipe, gt_kf, ate_odom, ticks)
     lane_vs_single(pipe, multi[-1])
 
-    p, m, nrm, nv, spfh_n, _ = inputs["src"]
+    p, m, _, srt = inputs["src"]
+    sp, sm_, sn, sv = (x[0] for x in srt[:4])
+    spn = srt.spn[0]
     ms = time_pairs({
         "knn": (lambda: knn_cuda.knn(*desc_args, 1),
                 lambda: knn.brute_knn(*desc_args, 1)),
@@ -933,10 +1141,10 @@ def main() -> int:
                        lambda: knn_cuda.knn_banded_plain(*sorted_nn, 1)),
         "moments": (lambda: fs.moments(p, m, 0.9, 0.6),
                     lambda: fs.moments_plain(p, m, 0.9, 0.6)),
-        "spfh": (lambda: fs.spfh(p, m, nrm, nv, 1.5),
-                 lambda: fs.spfh_plain(p, m, nrm, nv, 1.5)),
-        "agg": (lambda: fs.fpfh_agg(p, m, nv, spfh_n, 1.5),
-                lambda: fs.fpfh_agg_plain(p, m, nv, spfh_n, 1.5)),
+        "spfh": (lambda: fs.spfh(sp, sm_, sn, sv, 1.5),
+                 lambda: fs.spfh_plain(sp, sm_, sn, sv, 1.5)),
+        "agg": (lambda: fs.fpfh_agg(sp, sm_, sv, spn, 1.5),
+                lambda: fs.fpfh_agg_plain(sp, sm_, sv, spn, 1.5)),
     }, card)
     extra = time_pairs({
         f"knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP}": (
@@ -954,9 +1162,10 @@ def main() -> int:
         f"{cuda_ms(lambda: knn_library(*pdesc_args)):.4f} ms against the "
         f"kernel's {k33[0]:.4f} ms (call) / {kernel_ms(k33):.4f} ms (device) "
         f"[{card}]")
-    P, M, bnrm, bnv, bspn, bdesc, bval = clouds["src"]
+    P, M, bsrt, bdesc, bval = clouds["src"]
     D, DM = clouds["dst"][:2]
-    ddesc, dval = clouds["dst"][5:]
+    ddesc, dval = clouds["dst"][3:]
+    bfp = tuple(bsrt[:4])
     ms.update(time_pairs({
         "knn_b": (lambda: knn_cuda.knn_batched(bdesc, bval, ddesc, dval, 1),
                   lambda: knn_cuda.knn_batched_plain(bdesc, bval, ddesc,
@@ -966,13 +1175,16 @@ def main() -> int:
             lambda: knn_cuda.knn_banded_batched_plain(*bsorted, 1)),
         "moments_b": (lambda: fs.moments_batched(P, M, 0.9, 0.6),
                       lambda: fs.moments_batched_plain(P, M, 0.9, 0.6)),
-        "spfh_b": (lambda: fs.spfh_batched(P, M, bnrm, bnv, 1.5),
-                   lambda: fs.spfh_batched_plain(P, M, bnrm, bnv, 1.5)),
-        "agg_b": (lambda: fs.fpfh_agg_batched(P, M, bnv, bspn, 1.5),
-                  lambda: fs.fpfh_agg_batched_plain(P, M, bnv, bspn, 1.5)),
+        "spfh_b": (lambda: fs.spfh_batched(*bfp, 1.5),
+                   lambda: fs.spfh_batched_plain(*bfp, 1.5)),
+        "agg_b": (lambda: fs.fpfh_agg_batched(bsrt.p, bsrt.m, bsrt.v,
+                                              bsrt.spn, 1.5),
+                  lambda: fs.fpfh_agg_batched_plain(bsrt.p, bsrt.m, bsrt.v,
+                                                    bsrt.spn, 1.5)),
     }, card))
-    log(f"batched kernel shapes: B={P.shape[0]}; K1 F=33 {P.shape[1]}x{D.shape[1]}; "
-        f"K2 F=3 sorted {P.shape[1]}x{D.shape[1]}; K3-K5 {P.shape[1]} rows")
+    log(f"batched kernel shapes: B={P.shape[0]}; K1 F=33 "
+        f"{P.shape[1]}x{D.shape[1]}; K2 F=3 sorted {P.shape[1]}x"
+        f"{D.shape[1]}; K3-K5 {P.shape[1]} rows (K4, K5 Morton-sorted)")
 
     knn_in = {"knn": desc_args, "knn_banded": sorted_nn,
               "knn_b": (bdesc, bval, ddesc, dval), "knn_banded_b": bsorted}
@@ -985,25 +1197,42 @@ def main() -> int:
     torch.cuda.empty_cache()
     bkeep = [knn_cuda.block_tile_keep(*(a[i] for a in bsorted), 1)
              for i in range(bsorted[0].shape[0])]
-    keep = m & nv
-    bkeep_fp = M & bnv
+    keep = sm_ & sv
+    bkeep_fp = bsrt.m & bsrt.v
+    # K4 / K5 skip the pairs the radius prune rules out: their bound counts
+    # the in-radius pairs' math only (the all-pairs figure, with 9 flops of
+    # distance test per valid pair, beside it in the log)
+    all_pairs = {
+        "spfh": radius_bound(sp, sm_, keep, (1.5,), 9, (75,), 26, 136),
+        "agg": radius_bound(sp, sm_, keep, (1.5,), 9, (68,), 146, 136),
+        "spfh_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 9, (75,),
+                               26, 136),
+        "agg_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 9, (68,),
+                              146, 136)}
     bounds = {
         "knn": knn_bound(*desc_args, 1),
         "knn_banded": knn_bound(*sorted_nn, 1, keep=knn_cuda.block_tile_keep(
             *sorted_nn, 1)),
         "moments": radius_bound(p, m, m, (0.9, 0.6), 9, (16, 10), 13, 80),
-        "spfh": radius_bound(p, m, keep, (1.5,), 9, (75,), 26, 136),
-        "agg": radius_bound(p, m, keep, (1.5,), 9, (68,), 146, 136),
+        "spfh": radius_bound(sp, sm_, keep, (1.5,), 0, (75,), 26, 136),
+        "agg": radius_bound(sp, sm_, keep, (1.5,), 0, (68,), 146, 136),
         "knn_b": knn_bound(bdesc, bval, ddesc, dval, 1),
         "knn_banded_b": knn_bound(*bsorted, 1, keep=bkeep),
         "moments_b": radius_bound(P, M, M, (0.9, 0.6), 9, (16, 10), 13, 80),
-        "spfh_b": radius_bound(P, M, bkeep_fp, (1.5,), 9, (75,), 26, 136),
-        "agg_b": radius_bound(P, M, bkeep_fp, (1.5,), 9, (68,), 146, 136),
+        "spfh_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 0, (75,),
+                               26, 136),
+        "agg_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 0, (68,),
+                              146, 136),
     }
     for key, (b_ms, by) in bounds.items():
-        log(f"bound {key}: {b_ms:.5f} ms by {by}; kernel "
+        old = (f"; all pairs {all_pairs[key][0]:.5f} ms by "
+               f"{all_pairs[key][1]}" if key in all_pairs else "")
+        log(f"bound {key}: {b_ms:.5f} ms by {by}{old}; kernel "
             f"{kernel_ms(ms[key]):.4f} ms (the bound is "
             f"{b_ms / kernel_ms(ms[key]):.3f} of it)")
+    log(f"K4 / K5 keep rule: {srt.share:.4f} of the (block, tile) pairs "
+        f"below the extents kept on the bench source, {bsrt.share:.4f} on "
+        f"the B={P.shape[0]} lanes at the pipeline padding")
     for label, lc in runs.items():
         t = cuda_ms(lambda: lc.fetch_and_perform(store, 1))
         log(f"time attempt {label}: {t:.3f} ms per fetch_and_perform "

@@ -25,6 +25,21 @@ __device__ __forceinline__ float cross3(float qx, float qy, float qz, float vx, 
   return fmaf(qz, vz, fmaf(qy, vy, __fmul_rn(qx, vx)));
 }
 
+// 4-byte asynchronous copies into shared memory (the tiles' double
+// buffers): issue, close a group, wait for all groups but the newest.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }

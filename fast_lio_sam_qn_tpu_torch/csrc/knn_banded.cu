@@ -25,11 +25,12 @@
 // walking all of its block's kept tiles alone, one __syncthreads() per
 // tile whether kept or not.
 //
-// Design: two launches on one stream.  (1) tile_bbox_kernel: one warp per
-// db tile reduces its valid points to [lo xyz | hi xyz]; tiles past the
-// lane's db_end are empty and are not read.  (2) the search, one CTA per
-// (query block, lane, slice).  A block at or past the lane's q_end, or with
-// no valid query, writes (inf, -1) and exits.  Otherwise the CTA reduces
+// Design: two launches on one stream.  (1) tile_bbox_kernel (tile_prune.cuh,
+// shared with K4 and K5): one warp per db tile reduces its valid points to
+// [lo xyz | hi xyz]; tiles past the lane's db_end are empty and are not
+// read.  (2) the search, one CTA per (query block, lane, slice).  A block
+// at or past the lane's q_end, or with no valid query, writes (inf, -1)
+// and exits.  Otherwise the CTA reduces
 // its valid queries to a bbox, takes md2 / g2 against the tile boxes and
 // the k-th bound as above.
 //
@@ -37,10 +38,11 @@
 //   Only the tiles below db_end are scored (a tile past it is empty, with
 //   md2 = g2 = +inf, so the minimum and the keep flags do not change).  The
 //   kept tiles are compacted, in ascending order, into a list in shared
-//   memory with a warp-ballot prefix sum, so a skipped tile costs no
-//   barrier.  Grid z splits the list into `splits` slices (split_lo); all
-//   8 warps search each kept tile, and merge_slices takes the
-//   lexicographic minimum of the slices' (d2, idx) partials.
+//   memory with a warp-ballot prefix sum (tile_prune.cuh
+//   compact_ascending), so a skipped tile costs no barrier.  Grid z
+//   splits the list into `splits` slices (split_lo); all 8 warps search
+//   each kept tile, and merge_slices takes the lexicographic minimum of
+//   the slices' (d2, idx) partials.
 //
 //   1 < k <= 32: one thread per query as K1's k > 1 path, over every tile
 //   box for the k-th bound (the reference's rule as it is), then the kept
@@ -55,99 +57,17 @@
 // lane's keep decisions read that lane's boxes only, so a lane runs
 // exactly the single-cloud body and gives its bits.
 #include "knn_tile.cuh"
+#include "tile_prune.cuh"
 
 namespace {
 
 using flsq::kNnBlock;
 using flsq::kNnThreads;
 using flsq::kNnTile;
+using flsq::warp_min;
 
 constexpr int kMaxTiles = 4096;
-constexpr float kSlack = 1.03f;  // pallas_knn._PRUNE_SLACK
 constexpr int kMaxWarps = kNnThreads / 32;
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// tbox (n_tiles, 6): [lo x, lo y, lo z, hi x, hi y, hi z] over the tile's
-// valid points; +inf / -inf when the tile has none.  Rows past db_end are
-// masked and not read.
-__global__ void tile_bbox_kernel(const float* __restrict__ db, const uint8_t* __restrict__ dbmask,
-                                 const int* __restrict__ db_end, int n, int n_tiles,
-                                 float* __restrict__ tbox) {
-  const size_t lane_b = blockIdx.y;
-  db += lane_b * n * 3;
-  dbmask += lane_b * n;
-  tbox += lane_b * n_tiles * 6;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= n_tiles) return;
-  const int end = min(db_end[lane_b], (warp + 1) * kNnTile);
-  float lo[3] = {INFINITY, INFINITY, INFINITY};
-  float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-  for (int r = warp * kNnTile + lane; r < end; r += 32) {
-    if (!dbmask[r]) continue;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float v = db[3 * (size_t)r + c];
-      lo[c] = fminf(lo[c], v);
-      hi[c] = fmaxf(hi[c], v);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    lo[c] = warp_min(lo[c]);
-    hi[c] = warp_max(hi[c]);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      tbox[6 * (size_t)warp + c] = lo[c];
-      tbox[6 * (size_t)warp + 3 + c] = hi[c];
-    }
-  }
-}
-
-// The bbox of the block's valid queries (thread t < kNnBlock holds query
-// row t of the block, qok its validity), reduced over the CTA into
-// blo / bhi; returns whether any query is valid.  Every thread calls it.
-__device__ bool block_bbox(bool qok, float qx, float qy, float qz, float (&blo)[3],
-                           float (&bhi)[3]) {
-  __shared__ float s_red[kMaxWarps][6];
-  __shared__ int s_any;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (threadIdx.x == 0) s_any = 0;
-  float b[6] = {qok ? qx : INFINITY,  qok ? qy : INFINITY,  qok ? qz : INFINITY,
-                qok ? qx : -INFINITY, qok ? qy : -INFINITY, qok ? qz : -INFINITY};
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    b[c] = warp_min(b[c]);
-    b[3 + c] = warp_max(b[3 + c]);
-  }
-  __syncthreads();
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < 6; ++c) s_red[warp][c] = b[c];
-  }
-  if (qok) s_any = 1;
-  __syncthreads();
-  // the query rows are threads 0..63: warps 0 and 1
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    blo[c] = fminf(s_red[0][c], s_red[1][c]);
-    bhi[c] = fmaxf(s_red[0][3 + c], s_red[1][3 + c]);
-  }
-  return s_any != 0;
-}
 
 // md2: the largest, g2: the smallest squared distance between the block's
 // box and tile t's box (pallas_knn._block_tile_keep).
@@ -189,7 +109,6 @@ __global__ void __launch_bounds__(kNnThreads, 2)
   extern __shared__ float smem[];
   int* s_list = reinterpret_cast<int*>(smem + flsq::nn_smem_floats(3));  // n_tiles
   __shared__ float s_min[kMaxWarps];
-  __shared__ int s_cnt[kMaxWarps];
 
   const int q0 = blockIdx.x * kNnBlock;
   const int qend = q_end[cloud];
@@ -201,8 +120,9 @@ __global__ void __launch_bounds__(kNnThreads, 2)
   const int row = q0 + tid;
   const bool qok = tid < kNnBlock && row < m && qmask[row] != 0;
   float blo[3], bhi[3];
-  if (!block_bbox(qok, qok ? q[3 * (size_t)row] : 0.0f, qok ? q[3 * (size_t)row + 1] : 0.0f,
-                  qok ? q[3 * (size_t)row + 2] : 0.0f, blo, bhi)) {
+  if (!flsq::block_bbox<2>(qok, qok ? q[3 * (size_t)row] : 0.0f,
+                           qok ? q[3 * (size_t)row + 1] : 0.0f,
+                           qok ? q[3 * (size_t)row + 2] : 0.0f, blo, bhi)) {
     flsq::nn_store_empty(q0, m, out_d, out_i);
     return;
   }
@@ -221,30 +141,17 @@ __global__ void __launch_bounds__(kNnThreads, 2)
   float kth = s_min[0];
 #pragma unroll
   for (int w = 1; w < kMaxWarps; ++w) kth = fminf(kth, s_min[w]);
-  const float bound = __fmul_rn(kth, kSlack);
+  const float bound = __fmul_rn(kth, flsq::kPruneSlack);
 
   // the kept tiles, compacted in ascending order
-  int count = 0;
-  for (int t0 = 0; t0 < live; t0 += kNnThreads) {
-    const int t = t0 + tid;
-    bool keep = false;
-    if (t < live) {
-      float md2, g2;
-      tile_bounds(tbox, t, blo, bhi, md2, g2);
-      keep = g2 <= bound;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    __syncthreads();  // s_cnt of the previous round is read
-    if (lane == 0) s_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int at = count + __popc(ballot & ((1u << lane) - 1u));
-    for (int w = 0; w < kMaxWarps; ++w) {
-      at += w < warp ? s_cnt[w] : 0;
-      count += s_cnt[w];
-    }
-    if (keep) s_list[at] = t;
-  }
-  __syncthreads();
+  const int count = flsq::compact_ascending<kNnThreads>(
+      live,
+      [&](int t) {
+        float md2, g2;
+        tile_bounds(tbox, t, blo, bhi, md2, g2);
+        return g2 <= bound;
+      },
+      s_list);
 
   const int i0 = flsq::split_lo(count, gridDim.z, blockIdx.z);
   const int i1 = flsq::split_lo(count, gridDim.z, blockIdx.z + 1);
@@ -293,7 +200,7 @@ __global__ void __launch_bounds__(kNnBlock)
 
   float blo[3], bhi[3];
   const bool past = static_cast<int>(blockIdx.x) * kNnBlock >= q_end[cloud];
-  if (past || !block_bbox(qok, qx, qy, qz, blo, bhi)) {
+  if (past || !flsq::block_bbox<2>(qok, qx, qy, qz, blo, bhi)) {
     if (live)  // past the extent or no valid query in the block: nothing to search
       for (int s = 0; s < k; ++s) {
         out_d[(size_t)row * k + s] = INFINITY;
@@ -320,7 +227,7 @@ __global__ void __launch_bounds__(kNnBlock)
     if (below <= kk - 1 && kk - 1 < at_or_below) s_kth = v;
   }
   __syncthreads();
-  const float bound = __fmul_rn(s_kth, kSlack);
+  const float bound = __fmul_rn(s_kth, flsq::kPruneSlack);
   for (int t = threadIdx.x; t < n_tiles; t += kNnBlock) s_g2[t] = s_g2[t] <= bound ? 1.0f : 0.0f;
 
   float bd[KMAX];
@@ -380,11 +287,7 @@ FLSQ_API int flsq_knn_banded(const float* q, const float* qq, const uint8_t* qma
       splits < 1 || splits > flsq::kMaxSplits || (k > 1 && splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tiles > 0) {
-    const int threads = 256;
-    const dim3 boxes(flsq::ceil_div(n_tiles * 32, threads), b);
-    tile_bbox_kernel<<<boxes, threads, 0, s>>>(db, dbmask, db_end, n, n_tiles, tbox);
-  }
+  flsq::launch_tile_boxes<kNnTile>(db, dbmask, db_end, b, n, n_tiles, tbox, s);
   if (k == 1) {
     const dim3 grid(flsq::ceil_div(m, kNnBlock), b, splits);
     const size_t smem = sizeof(float) * (flsq::nn_smem_floats(3) + (size_t)n_tiles);

@@ -66,19 +66,6 @@ __host__ __device__ constexpr int nn_smem_floats(int f) {
   return f * kStrideQ + 2 * f * kStrideD + 2 * kNnTile + 4 * kNnBlock;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // The operands of step c: this thread's 4 query values and 8 db values.
 __device__ __forceinline__ void nn_operands(const float* s_q, const float* s_db, int c,
                                             int qoff, int doff, float (&qa)[kNnTQ],

@@ -20,18 +20,28 @@ versions apply the single plain version lane by lane.  The plain versions
 use the reference's distance expansion d2 = |q|^2 - 2 q.v + |v|^2 in fp32,
 query block by query block, over the points that may qualify, so they
 track the JAX package on the CPU; the kernels use the same
-expansion on the same |q|^2, |v|^2 operands.  The reference's Morton sort
-only served its bbox prune, which no kernel here does yet, so it is left
-out: results do not depend on point order beyond fp summation order.
+expansion on the same |q|^2, |v|^2 operands.
+
+K4 and K5 skip the (query block, db tile) pairs that the radius keep rule
+(``radius_tile_keep``, csrc/tile_prune.cuh) shows to hold no pair within
+the radius, and stop at each lane's extents; they write zero rows for
+masked queries.  The prune skips work only when the cloud is compact in
+row order, so on CUDA ``fpfh_radius`` and ``fpfh_radius_batched`` run K4
+and K5 on the Morton-sorted cloud (``spfh_agg_sorted``, the reference's
+``use_tpu`` route) and return every output in the caller's row order.  K3
+still runs on the unsorted cloud, and CPU tensors keep the unsorted plain
+route (the reference's CPU path does not sort either).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
-from . import linalg3
+from . import knn_cuda, linalg3
 from .knn import sq_norms
 
 FPFH_DIM = 33
@@ -39,6 +49,10 @@ _NBINS = 11
 _BIG = 3.4e38
 TQ = 128          # query rows per block of the plain versions
 PLANE_EPS = 1e-3  # gicp.PLANE_EPS
+FP_BLOCK = 32     # query rows a CTA of K4 / K5 (csrc/tile_prune.cuh kFpBlock)
+FP_TILE = 32      # db rows a tile of their keep rule (kFpTile)
+FP_MAX_TILES = 4096
+D2_ERR = 2.0 ** -19  # the keep rule's bound on the expansion's error (kD2Err)
 
 # theta bin edges theta_j = -pi + j 2pi/11 as (cos, sin): the angle of
 # (tx, ty) lies in bin j iff sigma_j >= 0 > sigma_{j+1}, where sigma_j =
@@ -209,6 +223,95 @@ def moments_to_normals_covs(mom, points, mask, viewpoint):
 
 
 # ---------------------------------------------------------------------------
+# the radius prune that K4 and K5 share
+# ---------------------------------------------------------------------------
+
+def radius_tile_keep(points, qmask, dbkeep, radius: float,
+                     block: int = FP_BLOCK, tile: int = FP_TILE):
+    """(n_blocks, n_tiles) bool: may db tile t (``tile`` rows of the points
+    in ``dbkeep``) hold a point within ``radius`` of a query of block b
+    (``block`` rows of the points in ``qmask``)?  The model of K4 / K5's
+    keep rule, csrc/tile_prune.cuh: tile t non-empty and g2(b, t) <= r2 *
+    PRUNE_SLACK + D2_ERR * (far2(b) + far2(t)), with g2 the smallest
+    squared gap between the two boxes and far2 a box's largest |p|^2.  The
+    second term covers the fp32 expansion's error, so no pair whose
+    expanded d2 passes the radius test is dropped, far from the origin
+    too."""
+    qb = knn_cuda.tile_bboxes(points, qmask, block)
+    tb = knn_cuda.tile_bboxes(points, dbkeep, tile)
+    qlo, qhi = qb[:, None, :3], qb[:, None, 3:]
+    tlo, thi = tb[None, :, :3], tb[None, :, 3:]
+    gap = torch.clamp(torch.maximum(tlo - qhi, qlo - thi), min=0.0)
+    g2 = gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] \
+        + gap[..., 2] * gap[..., 2]
+
+    def far2(lo, hi):
+        f = torch.maximum(lo * lo, hi * hi)
+        return f[..., 0] + f[..., 1] + f[..., 2]
+
+    r2s = torch.tensor(radius * radius, dtype=torch.float32,
+                       device=points.device) * knn_cuda.PRUNE_SLACK
+    bound = r2s + D2_ERR * (far2(qlo, qhi) + far2(tlo, thi))
+    return (g2 <= bound) & (tlo[..., 0] <= thi[..., 0])
+
+
+class RadiusPrune(NamedTuple):
+    """What K4 and K5 of the same (B, N) clouds share: |p|^2 (qq), |p|^2
+    with the +3.4e38 penalty outside mask & n_valid (dd), each lane's
+    query and db extents (``knn_cuda.lane_extents`` of mask and of mask &
+    n_valid) and the tile boxes of mask & n_valid (B, ceil(N / FP_TILE),
+    6), all on the clouds' device."""
+    qq: torch.Tensor
+    dd: torch.Tensor
+    q_end: torch.Tensor
+    db_end: torch.Tensor
+    tbox: torch.Tensor
+
+
+def radius_prune(points, mask, n_valid) -> RadiusPrune:
+    """``RadiusPrune`` of (B, N, 3) CUDA clouds: one tile-box launch and a
+    few small torch ops, no host read."""
+    b, n, _ = points.shape
+    n_tiles = -(-n // FP_TILE)
+    if n_tiles > FP_MAX_TILES:
+        raise ValueError(f"the FPFH kernels take N <= "
+                         f"{FP_TILE * FP_MAX_TILES}; got N={n}")
+    _check_clouds("radius_prune", points, (
+        (mask, "mask", torch.bool, ()), (n_valid, "n_valid", torch.bool, ())))
+    keep = mask & n_valid
+    qq = sq_norms(points)
+    db_end = knn_cuda.lane_extents(keep)
+    tbox = torch.empty((b, n_tiles, 6), dtype=torch.float32,
+                       device=points.device)
+    lib = kernels.load_library()
+    with torch.cuda.device(points.device):
+        status = lib.flsq_fpfh_boxes(
+            points.data_ptr(), keep.data_ptr(), db_end.data_ptr(), b, n,
+            tbox.data_ptr(), kernels.stream(points))
+    kernels.check_status(status, "fpfh tile boxes")
+    return RadiusPrune(qq, qq + torch.where(keep, 0.0, _BIG),
+                       knn_cuda.lane_extents(mask), db_end, tbox)
+
+
+def _require_prune(name, prune: RadiusPrune, points) -> None:
+    b, n, _ = points.shape
+    dev = points.device
+    for t, label, dt, shape in (
+            (prune.qq, "qq", torch.float32, (b, n)),
+            (prune.dd, "dd", torch.float32, (b, n)),
+            (prune.q_end, "q_end", torch.int32, (b,)),
+            (prune.db_end, "db_end", torch.int32, (b,)),
+            (prune.tbox, "tbox", torch.float32, (b, -(-n // FP_TILE), 6))):
+        kernels.require(t, f"{name}: {label}", dt, shape, dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _theta_table(device: torch.device) -> torch.Tensor:
+    """cos then sin of the 12 theta bin edges, on ``device`` (made once)."""
+    return torch.tensor(_TH_COS + _TH_SIN, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
 # K4: SPFH
 # ---------------------------------------------------------------------------
 
@@ -276,34 +379,38 @@ def spfh_plain(points, mask, normals, n_valid, radius: float):
     return torch.cat(out)
 
 
-def _launch_spfh(points, mask, normals, n_valid, radius: float):
+def _launch_spfh(points, mask, normals, n_valid, radius: float, prune):
     b, n, _ = points.shape
     _check_clouds("spfh", points, (
         (mask, "mask", torch.bool, ()),
         (normals, "normals", torch.float32, (3,)),
         (n_valid, "n_valid", torch.bool, ())))
-    qq = sq_norms(points)
-    dd = _db_norms(points, mask & n_valid)
-    th = torch.tensor(_TH_COS + _TH_SIN, dtype=torch.float32,
-                      device=points.device)
+    if prune is None:
+        prune = radius_prune(points, mask, n_valid)
+    _require_prune("spfh", prune, points)
     out = torch.empty((b, n, FPFH_DIM + 1), dtype=torch.float32,
                       device=points.device)
     lib = kernels.load_library()
     with torch.cuda.device(points.device):
         status = lib.flsq_fpfh_spfh(
-            points.data_ptr(), normals.data_ptr(), qq.data_ptr(),
-            dd.data_ptr(), th.data_ptr(), b, n, radius * radius,
-            out.data_ptr(), kernels.stream(points))
+            points.data_ptr(), normals.data_ptr(), prune.qq.data_ptr(),
+            prune.dd.data_ptr(), mask.data_ptr(),
+            _theta_table(points.device).data_ptr(), prune.q_end.data_ptr(),
+            prune.db_end.data_ptr(), prune.tbox.data_ptr(), b, n,
+            radius * radius, out.data_ptr(), kernels.stream(points))
     kernels.check_status(status, "fpfh spfh")
     return out
 
 
-def spfh(points, mask, normals, n_valid, radius: float):
-    """(N, 34) raw SPFH counts + neighbour count — kernel K4 on CUDA."""
+def spfh(points, mask, normals, n_valid, radius: float, prune=None):
+    """(N, 34) raw SPFH counts + neighbour count — kernel K4 on CUDA, where
+    rows of masked queries are zero.  ``prune``: ``radius_prune`` of these
+    operands with a leading batch axis of 1, shared with K5 (made here when
+    None)."""
     if not kernels.on_cuda("spfh", points):
         return spfh_plain(points, mask, normals, n_valid, radius)
     out = _launch_spfh(points[None], mask[None], normals[None], n_valid[None],
-                       radius)
+                       radius, prune)
     spfh.launches += 1
     return out[0]
 
@@ -316,11 +423,12 @@ def spfh_batched_plain(points, mask, normals, n_valid, radius: float):
                             normals, n_valid)
 
 
-def spfh_batched(points, mask, normals, n_valid, radius: float):
-    """(B, N, 34) SPFH of B clouds — kernel K4 in one launch on CUDA."""
+def spfh_batched(points, mask, normals, n_valid, radius: float, prune=None):
+    """(B, N, 34) SPFH of B clouds — kernel K4 in one launch on CUDA;
+    ``prune`` as in ``spfh``."""
     if not kernels.on_cuda("spfh_batched", points):
         return spfh_batched_plain(points, mask, normals, n_valid, radius)
-    out = _launch_spfh(points, mask, normals, n_valid, radius)
+    out = _launch_spfh(points, mask, normals, n_valid, radius, prune)
     spfh_batched.launches += 1
     return out
 
@@ -350,33 +458,36 @@ def fpfh_agg_plain(points, mask, n_valid, spfh_n, radius: float):
     return torch.cat(out)
 
 
-def _launch_agg(points, mask, n_valid, spfh_n, radius: float):
+def _launch_agg(points, mask, n_valid, spfh_n, radius: float, prune):
     b, n, _ = points.shape
     _check_clouds("fpfh_agg", points, (
         (mask, "mask", torch.bool, ()),
         (n_valid, "n_valid", torch.bool, ()),
         (spfh_n, "spfh", torch.float32, (FPFH_DIM,))))
-    qq = sq_norms(points)
-    dd = _db_norms(points, mask & n_valid)
+    if prune is None:
+        prune = radius_prune(points, mask, n_valid)
+    _require_prune("fpfh_agg", prune, points)
     out = torch.empty((b, n, FPFH_DIM + 1), dtype=torch.float32,
                       device=points.device)
     lib = kernels.load_library()
     with torch.cuda.device(points.device):
         status = lib.flsq_fpfh_agg(
-            points.data_ptr(), qq.data_ptr(), dd.data_ptr(),
-            spfh_n.data_ptr(), b, n, radius * radius, out.data_ptr(),
-            kernels.stream(points))
+            points.data_ptr(), prune.qq.data_ptr(), prune.dd.data_ptr(),
+            mask.data_ptr(), spfh_n.data_ptr(), prune.q_end.data_ptr(),
+            prune.db_end.data_ptr(), prune.tbox.data_ptr(), b, n,
+            radius * radius, out.data_ptr(), kernels.stream(points))
     kernels.check_status(status, "fpfh aggregation")
     return out
 
 
-def fpfh_agg(points, mask, n_valid, spfh_n, radius: float):
+def fpfh_agg(points, mask, n_valid, spfh_n, radius: float, prune=None):
     """(N, 34): sum of SPFH(v) / d(p, v) over neighbours + their count —
-    kernel K5 on CUDA."""
+    kernel K5 on CUDA, where rows of masked queries are zero; ``prune`` as
+    in ``spfh``."""
     if not kernels.on_cuda("fpfh_agg", points):
         return fpfh_agg_plain(points, mask, n_valid, spfh_n, radius)
     out = _launch_agg(points[None], mask[None], n_valid[None], spfh_n[None],
-                      radius)
+                      radius, prune)
     fpfh_agg.launches += 1
     return out[0]
 
@@ -389,12 +500,13 @@ def fpfh_agg_batched_plain(points, mask, n_valid, spfh_n, radius: float):
                             mask, n_valid, spfh_n)
 
 
-def fpfh_agg_batched(points, mask, n_valid, spfh_n, radius: float):
+def fpfh_agg_batched(points, mask, n_valid, spfh_n, radius: float,
+                     prune=None):
     """(B, N, 34) aggregation of B clouds — kernel K5 in one launch on
-    CUDA."""
+    CUDA; ``prune`` as in ``spfh``."""
     if not kernels.on_cuda("fpfh_agg_batched", points):
         return fpfh_agg_batched_plain(points, mask, n_valid, spfh_n, radius)
-    out = _launch_agg(points, mask, n_valid, spfh_n, radius)
+    out = _launch_agg(points, mask, n_valid, spfh_n, radius, prune)
     fpfh_agg_batched.launches += 1
     return out
 
@@ -426,20 +538,59 @@ def _descriptor(spfh_n, raw, agg, n_valid):
     return torch.where(valid[..., None], desc, 0.0), valid
 
 
+def spfh_agg_sorted(points, mask, normals, n_valid, radius: float,
+                    batched: bool = True):
+    """K4 then K5 of (B, N, ...) clouds on their Morton-sorted rows, the
+    reference's ``use_tpu`` route (fpfh_stream.py:630-662): one argsort,
+    one gather per operand, one ``radius_prune`` shared by both kernels,
+    and one scatter back per output.  Returns (raw SPFH (B, N, 34),
+    aggregation (B, N, 34)) in the caller's row order.  ``batched``: one
+    K4b and one K5b launch for all lanes; else B = 1 through the
+    single-cloud K4 and K5.  On CPU tensors the plain versions run on the
+    sorted rows."""
+    order = knn_cuda.morton_order_batched(points, mask)
+    p, m, nrm, nv = (knn_cuda.take_rows(x, order)
+                     for x in (points, mask, normals, n_valid))
+    prune = radius_prune(p, m, nv) if kernels.on_cuda(
+        "spfh_agg_sorted", p) else None
+    if batched:
+        raw = spfh_batched(p, m, nrm, nv, radius, prune)
+        agg = fpfh_agg_batched(p, m, nv, _normalized_spfh(raw), radius,
+                               prune)
+    else:
+        raw = spfh(p[0], m[0], nrm[0], nv[0], radius, prune)[None]
+        agg = fpfh_agg(p[0], m[0], nv[0], _normalized_spfh(raw[0]), radius,
+                       prune)[None]
+    return knn_cuda.put_rows(raw, order), knn_cuda.put_rows(agg, order)
+
+
+def _spfh_agg(points, mask, normals, n_valid, radius: float, batched: bool):
+    """(raw SPFH, aggregation) of (B, N, ...) clouds: on CUDA the sorted
+    route, on CPU the plain versions on the caller's rows."""
+    if kernels.on_cuda("fpfh_radius", points):
+        return spfh_agg_sorted(points, mask, normals, n_valid, radius,
+                               batched)
+    raw = spfh_batched_plain(points, mask, normals, n_valid, radius)
+    return raw, fpfh_agg_batched_plain(points, mask, n_valid,
+                                       _normalized_spfh(raw), radius)
+
+
 def fpfh_radius(points, mask, normal_radius: float, feature_radius: float,
                 viewpoint=None, cov_radius: float = 0.6):
     """Full radius-FPFH descriptor plus the shared surface geometry.
 
     Returns (desc (N, 33), valid (N,), (normals, n_valid, cov_reg)), where
     cov_reg are the Nano-GICP regularized plane covariances at cov_radius
-    (see the reference's fpfh_radius for why 0.6 m)."""
+    (see the reference's fpfh_radius for why 0.6 m).  On CUDA, K4 and K5
+    run on the Morton-sorted cloud (``spfh_agg_sorted``)."""
+    radius = float(feature_radius)
     mom = moments(points, mask, float(normal_radius), float(cov_radius))
     normals, n_valid, cov_reg, _ = moments_to_normals_covs(
         mom, points, mask, viewpoint)
-    raw = spfh(points, mask, normals, n_valid, float(feature_radius))
-    spfh_n = _normalized_spfh(raw)
-    agg = fpfh_agg(points, mask, n_valid, spfh_n, float(feature_radius))
-    desc, valid = _descriptor(spfh_n, raw, agg, n_valid)
+    raw, agg = (o[0] for o in _spfh_agg(
+        points[None], mask[None], normals[None], n_valid[None], radius,
+        batched=False))
+    desc, valid = _descriptor(_normalized_spfh(raw), raw, agg, n_valid)
     return desc, valid, (normals, n_valid, cov_reg)
 
 
@@ -448,9 +599,10 @@ def fpfh_radius_batched(points, mask, normal_radius: float,
                         cov_radius: float = 0.6):
     """``fpfh_radius`` of B clouds of equal padding — (B, N, 3) points,
     (B, N) masks, (B, 3) viewpoints — with one K3, one K4 and one K5
-    launch for the whole batch.  Returns the same tuple with a leading
-    batch axis on every tensor."""
+    launch for the whole batch (K4 and K5 on the Morton-sorted lanes).
+    Returns the same tuple with a leading batch axis on every tensor."""
     b, n, _ = points.shape
+    radius = float(feature_radius)
     mom = moments_batched(points, mask, float(normal_radius),
                           float(cov_radius))
     vp = viewpoint[:, None, :].expand(b, n, 3).reshape(b * n, 3)
@@ -459,9 +611,7 @@ def fpfh_radius_batched(points, mask, normal_radius: float,
         vp)
     normals = normals.reshape(b, n, 3).contiguous()
     n_valid = n_valid.reshape(b, n)
-    raw = spfh_batched(points, mask, normals, n_valid, float(feature_radius))
-    spfh_n = _normalized_spfh(raw)
-    agg = fpfh_agg_batched(points, mask, n_valid, spfh_n,
-                           float(feature_radius))
-    desc, valid = _descriptor(spfh_n, raw, agg, n_valid)
+    raw, agg = _spfh_agg(points, mask, normals, n_valid, radius,
+                         batched=True)
+    desc, valid = _descriptor(_normalized_spfh(raw), raw, agg, n_valid)
     return desc, valid, (normals, n_valid, cov_reg.reshape(b, n, 3, 3))

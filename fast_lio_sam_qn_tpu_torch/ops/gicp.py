@@ -71,17 +71,12 @@ def plane_covariances_batched(points, mask, k: int = 15):
     launch."""
     b, n, _ = points.shape
     _, nn_idx, nn_valid = knn_cuda.knn_batched(points, mask, points, mask, k)
-    nn_pts = _take(points, torch.clamp(nn_idx, min=0).reshape(b, n * k))
+    nn_pts = knn_cuda.take_rows(points,
+                                torch.clamp(nn_idx, min=0).reshape(b, n * k))
     cov, ok = plane_covariances_from_knn(
         points.reshape(b * n, 3), mask.reshape(-1),
         nn_pts.reshape(b * n, k, 3), nn_valid.reshape(b * n, k))
     return cov.reshape(b, n, 3, 3), ok.reshape(b, n)
-
-
-def _take(x, idx):
-    """Per-lane rows: x (B, N, ...) at idx (B, M) -> (B, M, ...)."""
-    idx = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
 
 
 class _GNState(NamedTuple):
@@ -122,8 +117,8 @@ def _gicp_iterate(src, src_mask, src_cov, dst, dst_mask, dst_cov, init_T,
         j = torch.clamp(idx, min=0)
         # M = (C_dst + R C_src R^T)^-1 per correspondence
         RCsRt = torch.einsum("zab,znbc,zdc->znad", R, src_cov, R)
-        M = linalg3.inv3(_take(dst_cov, j) + RCsRt)
-        r = _take(dst, j) - y
+        M = linalg3.inv3(knn_cuda.take_rows(dst_cov, j) + RCsRt)
+        r = knn_cuda.take_rows(dst, j) - y
         Jw = se3.hat(y)  # d r / d w; J = [hat(y) | -I], T <- exp(xi) T
         w = corr.to(src.dtype)
         MJw = torch.einsum("znab,znbc->znac", M, Jw)
@@ -198,14 +193,14 @@ def align_batched(src, src_mask, dst, dst_mask, init_T=None, *, src_cov,
             b, 1, 1)
     src_cov, src_ok = src_cov
     dst_cov, dst_ok = dst_cov
-    so = torch.stack([knn_cuda.morton_order(p, m)
-                      for p, m in zip(src, src_mask)])
-    do = torch.stack([knn_cuda.morton_order(p, m)
-                      for p, m in zip(dst, dst_mask)])
+    so = knn_cuda.morton_order_batched(src, src_mask)
+    do = knn_cuda.morton_order_batched(dst, dst_mask)
     src, src_mask, src_cov, src_ok = (
-        _take(x, so) for x in (src, src_mask, src_cov, src_ok))
+        knn_cuda.take_rows(x, so)
+        for x in (src, src_mask, src_cov, src_ok))
     dst, dst_mask, dst_cov, dst_ok = (
-        _take(x, do) for x in (dst, dst_mask, dst_cov, dst_ok))
+        knn_cuda.take_rows(x, do)
+        for x in (dst, dst_mask, dst_cov, dst_ok))
     st = _gicp_iterate(src, src_mask & src_ok, src_cov, dst,
                        dst_mask & dst_ok, dst_cov, init_T, max_corr_dist,
                        trans_eps, max_iter, nn)

@@ -187,17 +187,38 @@ def _part1by2(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def morton_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Spatial-locality sort order (int64 indices): a Morton code over
-    MORTON_CELL cells, masked points last, ties in index order (the
-    reference's stable ``jnp.argsort``)."""
-    lo = torch.amin(torch.where(mask[:, None], points, torch.inf), dim=0)
+def morton_order_batched(points: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) spatial-locality sort order (int64 indices) of (B, N, 3)
+    points: per lane a Morton code over MORTON_CELL cells from the lane's
+    valid minimum, masked points last, ties in index order (the reference's
+    stable ``jnp.argsort``); one stable argsort for all lanes."""
+    lo = torch.amin(torch.where(mask[..., None], points, torch.inf), dim=-2,
+                    keepdim=True)
     cell = torch.clamp(((points - lo) / MORTON_CELL).to(torch.int32), 0,
                        1023)
-    key = (_part1by2(cell[:, 0]) | (_part1by2(cell[:, 1]) << 1)
-           | (_part1by2(cell[:, 2]) << 2))
+    key = (_part1by2(cell[..., 0]) | (_part1by2(cell[..., 1]) << 1)
+           | (_part1by2(cell[..., 2]) << 2))
     key = torch.where(mask, key, torch.iinfo(torch.int32).max)
-    return torch.argsort(key, stable=True)
+    return torch.argsort(key, dim=-1, stable=True)
+
+
+def morton_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``morton_order_batched`` of one (N, 3) cloud: (N,) indices."""
+    return morton_order_batched(points[None], mask[None])[0]
+
+
+def take_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Per-lane rows: x (B, N, ...) at order (B, M) -> (B, M, ...)."""
+    idx = order.long().reshape(order.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def put_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``take_rows`` for a permutation ``order`` (B, N):
+    row i of lane b of x goes back to row order[b, i]."""
+    idx = order.long().reshape(order.shape + (1,) * (x.dim() - 2))
+    return torch.empty_like(x).scatter_(1, idx.expand(x.shape), x)
 
 
 def tile_bboxes(points: torch.Tensor, valid: torch.Tensor,

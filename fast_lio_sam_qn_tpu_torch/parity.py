@@ -16,16 +16,24 @@ from .ops.fpfh_stream import _TH_COS, _TH_SIN, _angles
 
 BOUNDARY_REL = 1e-4   # |d2 - r^2| <= 1e-4 r^2, in float64
 BIN_EDGE_BAND = 1e-4  # |angle value - bin edge|, in float64
+EXPANSION_REL = 2.0 ** -19  # fp32 d2 expansion error / (|q|^2 + |v|^2)
 
 
-def radius_boundary_rows(points, keep, rows, radii):
+def radius_boundary_rows(points, keep, rows, radii, expansion=False):
     """Bool per row in ``rows``: holds a pair with a kept point whose
-    float64 d2 lies within BOUNDARY_REL r^2 of r^2 for some radius r."""
+    float64 d2 lies within BOUNDARY_REL r^2 of r^2 for some radius r, or,
+    with ``expansion``, within that plus EXPANSION_REL (|q|^2 + |v|^2):
+    far from the origin two fp32 expansions of one pair's d2 may differ by
+    that much (csrc/tile_prune.cuh)."""
     p = points.double()
     d2 = torch.cdist(p[rows], p) ** 2
+    band = 0.0
+    if expansion:
+        pp = torch.sum(p * p, dim=1)
+        band = EXPANSION_REL * (pp[rows][:, None] + pp[None, :])
     near = torch.zeros_like(d2, dtype=torch.bool)
     for r in radii:
-        near |= torch.abs(d2 - r * r) <= BOUNDARY_REL * r * r
+        near |= torch.abs(d2 - r * r) <= BOUNDARY_REL * r * r + band
     return (near & keep[None, :]).any(dim=1)
 
 
@@ -54,13 +62,14 @@ def bin_edge_pairs(points, normals, keep, rows, radius):
     return (near & in_r).sum(dim=1)
 
 
-def spfh_rows_explained(got, want, points, normals, keep, rows, radius):
+def spfh_rows_explained(got, want, points, normals, keep, rows, radius,
+                        expansion=False):
     """Bool per row in ``rows``: the row's difference is whole pairs at a
     boundary — either a pair sits on the radius (membership, so counts may
-    differ), or the neighbour count is equal and the L1 difference of the
-    33 bins is at most 2 per bin-edge pair (each moved pair leaves one bin
-    and enters another)."""
-    rad = radius_boundary_rows(points, keep, rows, (radius,))
+    differ; ``expansion`` as in ``radius_boundary_rows``), or the neighbour
+    count is equal and the L1 difference of the 33 bins is at most 2 per
+    bin-edge pair (each moved pair leaves one bin and enters another)."""
+    rad = radius_boundary_rows(points, keep, rows, (radius,), expansion)
     nb = bin_edge_pairs(points, normals, keep, rows, radius)
     same_cnt = got[rows, 33] == want[rows, 33]
     l1 = torch.abs(got[rows, :33] - want[rows, :33]).sum(dim=1)

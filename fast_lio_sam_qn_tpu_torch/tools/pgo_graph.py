@@ -34,11 +34,12 @@ def _exp6(xi) -> np.ndarray:
     ).numpy()
 
 
-def build_graph(n_nodes: int, device: torch.device | str = "cpu",
+def build_graph(n_nodes: int, device: torch.device | str = "cuda",
                 seed: int = 0, capacity: int | None = None,
                 loop_capacity: int | None = None):
     """(GraphState cold-initialized to the dead-reckoned trajectory on
-    ``device``, ground-truth poses (N, 4, 4), number of loop factors).
+    ``device`` (the card unless the caller asks for the CPU), ground-truth
+    poses (N, 4, 4), number of loop factors).
     ``capacity`` / ``loop_capacity`` pad the node and loop arrays (default:
     just large enough)."""
     rng = np.random.default_rng(seed)

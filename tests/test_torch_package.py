@@ -76,9 +76,31 @@ def test_sources_name_no_jax_module():
 
 def test_port_is_lint_clean():
     csrc = sorted(glob.glob(os.path.join(PKG, "csrc", "*")))
-    assert len(csrc) == 7
+    assert len(csrc) == 8
     errors = lint_paths([PKG, SMOKE] + csrc)
     assert not errors, "\n".join(errors)
+
+
+def test_c_entries_match_their_signatures():
+    """Every ``FLSQ_API`` entry of csrc/*.cu has a ctypes signature of its
+    parameters' kinds (pointer, int, float) in ``kernels._SIGNATURES``, and
+    no signature lacks an entry: a pointer passed as a 32-bit int would be
+    cut on the card, where no test of this suite runs."""
+    import ctypes
+    import re
+
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    found = {}
+    for path in glob.glob(os.path.join(PKG, "csrc", "*.cu")):
+        text = open(path, encoding="utf-8").read()
+        for m in re.finditer(r"FLSQ_API int (\w+)\(([^)]*)\)", text):
+            found[m.group(1)] = tuple(
+                "P" if "*" in p else "F" if p.split()[0] == "float" else "I"
+                for p in m.group(2).split(","))
+    assert set(found) == set(kernels._SIGNATURES)
+    for name, params in found.items():
+        assert tuple(kind[t] for t in kernels._SIGNATURES[name]) == params, \
+            name
 
 
 def test_kernel_library_needs_a_cuda_device(monkeypatch):

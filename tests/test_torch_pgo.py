@@ -130,7 +130,7 @@ def test_pgo_graph_matches_jax():
     """The port's ``build_graph`` draws the same noise: ground truth and loops
     equal, the dead-reckoned initial within float32 rounding."""
     jg, jgt, jn = build_graph(128)
-    tg, tgt, tn = pgo_graph.build_graph(128)
+    tg, tgt, tn = pgo_graph.build_graph(128, device="cpu")
     assert jn == tn
     np.testing.assert_array_equal(tgt, jgt)
     for name in ("num_nodes", "loop_i", "loop_j", "loop_var", "num_loops"):
@@ -139,7 +139,8 @@ def test_pgo_graph_matches_jax():
     for name in ("poses", "odom_meas", "loop_meas", "prior_pose"):
         np.testing.assert_allclose(getattr(tg, name).numpy(),
                                    np.asarray(getattr(jg, name)), atol=1e-4)
-    padded, _, _ = pgo_graph.build_graph(128, capacity=256, loop_capacity=64)
+    padded, _, _ = pgo_graph.build_graph(128, device="cpu", capacity=256,
+                                         loop_capacity=64)
     assert padded.poses.shape[0] == 256 and padded.loop_i.shape[0] == 64
     got = pgo.optimize(padded, VAR, VAR, gn_iters=2)
     want = pgo.optimize(tg, VAR, VAR, gn_iters=2)
