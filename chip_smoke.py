@@ -4,7 +4,7 @@ on one CUDA card.
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --trace-fpfh-order   # phase 6 on both K4 / K5
+    python3 chip_smoke.py --trace-fpfh-order   # phase 6 on three FPFH
                                                # row orders, loop events
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -20,12 +20,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, on the benchmark's voxelized clouds at the
    benchmark's capacities and at the pipeline's; K2 must also equal K1 bit
-   for bit on the Morton-sorted clouds.  K4 and K5 run on the
-   Morton-sorted clouds with one shared radius prune, as ``fpfh_radius``
-   calls them: masked query rows must be zero, K4 on the unsorted cloud
-   must equal it after unpermuting, K5's count column must equal K4's,
-   and a repeat must be bit-identical; the share of (block, tile) pairs
-   that the keep rule keeps is printed;
+   for bit on the Morton-sorted clouds.  K3, K4 and K5 run on the
+   Morton-sorted clouds, as ``fpfh_radius`` calls them (K3 also on the
+   caller's rows), K4 and K5 with one shared radius prune: masked query
+   rows must be zero, K3 with its own prune must equal it with one given,
+   K4 on the unsorted cloud must equal it after unpermuting, K5's count
+   column must equal K4's, and a repeat must be bit-identical; the shares
+   of (block, tile) pairs that the keep rule keeps (K3 at 0.9 m, K4 / K5
+   at 1.5 m) are printed;
 4. drives the main path, ``LoopClosure(cfg, src_cap, dst_cap)
    .fetch_and_perform(store, 1)`` on a two-keyframe store, in both matching
    modes and at the pipeline's capacities, with every launch counter reset
@@ -37,9 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the single-cloud kernel on each lane: B = 3 lanes at the bench's
    padding, and at the pipeline's padding as many lanes as the pipeline's
    batched tick runs (``loop_batch = 4``); K2 batched must also equal K1
-   batched bit for bit on Morton-sorted lanes; K4b and K5b as K4 and K5
-   in phase 3, on Morton-sorted lanes, and on four edge-case lanes: holed
-   (both extents below N), all-masked, 500 m from the origin, and with
+   batched bit for bit on Morton-sorted lanes; K3b-K5b as K3-K5 in phase
+   3, on Morton-sorted lanes, and on four edge-case lanes: holed (both
+   extents below N), all-masked, 500 m from the origin, and with
    duplicate points;
 6. drives the pipeline, ``FastLioSamQnPipeline(cfg).feed(...)``, over a
    simulated revisiting run at full width (16,384-point scans, default
@@ -53,17 +55,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``perform_loop_closure``) on the same store: the same decisions, the
    pose within 1 mm / 1e-3 rad; the batched tick and a pose-graph solve
    repeat bit for bit;
-8. times every kernel and its plain version, and the kNN kernels' library
-   yardstick (``torch.cdist``, masked, then ``min``: timed here, never used
-   by the port), at the main path's shapes (K1 at F = 33); one whole
+8. times every kernel and its plain version, and the library yardsticks
+   (timed here, never used by the port, fp32 with TF32 off): for the kNN
+   kernels ``torch.cdist``, masked, then ``min``; for K3 ``cdist``, the
+   radius masks, then W @ features at both radii; for K5 ``cdist``, the
+   radius and not-self masks, then rsqrt(d2) @ SPFH; at the main path's
+   shapes (K1 at F = 33, K3-K5 on the Morton-sorted rows); one whole
    attempt per mode, the batched tick against single ticks on the same
    candidates, the pose-graph solve at full capacity and the pipeline's
    feeds, with CUDA events (median of 10 calls) or the host clock where a
    host read ends the call;
 9. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
-   result line.  K4 and K5 skip what the radius prune rules out, so their
-   bound counts the math of the pairs within the radius only (the
+   result line.  K3, K4 and K5 skip what the radius prune rules out, so
+   their bound counts the math of the pairs within the radius only (the
    all-pairs figure is logged beside it).
 """
 from __future__ import annotations
@@ -274,6 +279,47 @@ def knn_library(q, qm, db, dbm):
     return torch.where(qm, v * v, torch.inf), torch.where(qm, i, -1)
 
 
+def _strict_fp32():
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the yardsticks must run in fp32")
+
+
+def moments_library(p, m):
+    """K3's library yardstick (timed, never used by the port), one
+    composed call chain for (N, 3) or (B, N, 3) clouds in fp32, TF32 off:
+    torch.cdist, the radius masks at 0.9 m and 0.6 m over valid pairs,
+    then W @ [1, x, y, z, xx, xy, xz, yy, yz, zz] at each radius."""
+    import torch
+
+    _strict_fp32()
+    d2 = torch.cdist(p, p).square_()
+    pair = m[..., :, None] & m[..., None, :]
+    feats = torch.cat([torch.ones_like(p[..., :1]), p, p[..., 0:1] * p,
+                       p[..., 1:2] * p[..., 1:], p[..., 2:3] * p[..., 2:]],
+                      dim=-1)
+    return torch.cat([((d2 <= r * r) & pair).float() @ feats
+                      for r in (0.9, 0.6)], dim=-1)
+
+
+def agg_library(p, m, v, spn):
+    """K5's library yardstick (timed, never used by the port), in fp32 with
+    TF32 off: torch.cdist, the masks of valid queries, valid db points
+    (mask & n_valid) within 1.5 m and not the query itself, then
+    rsqrt(d2) @ SPFH beside the neighbour count."""
+    import torch
+
+    _strict_fp32()
+    n = p.shape[-2]
+    d2 = torch.cdist(p, p).square_()
+    w = (d2 <= 1.5 * 1.5) & m[..., :, None] & (m & v)[..., None, :]
+    w &= ~torch.eye(n, dtype=torch.bool, device=p.device)
+    wt = torch.where(w, torch.rsqrt(d2.clamp_(min=1e-12)), 0.0)
+    return torch.cat([wt @ spn, w.sum(-1, keepdim=True, dtype=p.dtype)],
+                     dim=-1)
+
+
 def bound(flops, nbytes):
     """(bound_ms, bound_by): the larger of the operations over the fp32
     peak and the bytes over the HBM rate."""
@@ -341,11 +387,12 @@ def radius_bound(p, qm, dbm, radii, pair_flops, hit_flops, row_in, row_out):
 
 
 class FpfhSorted(NamedTuple):
-    """K4 / K5's operands on Morton-sorted lanes, as ``fpfh_radius``
-    gives them to the kernels: (B, N, ...) points, mask, normals, n_valid,
-    the plain version's normalized SPFH, the shared radius prune, and the
-    share of (block, tile) pairs below the extents that the keep rule
-    keeps."""
+    """K3-K5's operands on Morton-sorted lanes, as ``fpfh_radius`` gives
+    them to the kernels: (B, N, ...) points, mask, normals, n_valid, the
+    plain version's normalized SPFH, K4 / K5's shared radius prune, and
+    the shares of (block, tile) pairs below the extents that the keep rule
+    keeps for K4 / K5 (1.5 m over mask & n_valid) and for K3 (0.9 m over
+    mask)."""
     p: object
     m: object
     n: object
@@ -353,10 +400,11 @@ class FpfhSorted(NamedTuple):
     spn: object
     prune: object
     share: float
+    share3: float
 
 
 def check_fpfh_rows(name, got, want, qmask, atol, rtol, explain):
-    """A K4 / K5 output against its plain version under the kernels'
+    """A K3 / K4 / K5 output against its plain version under the kernels'
     contract: rows of masked queries are zero; valid rows within atol /
     rtol, each row beyond accepted by ``explain(rows)`` (indices of the
     full output)."""
@@ -372,33 +420,72 @@ def check_fpfh_rows(name, got, want, qmask, atol, rtol, explain):
                       lambda r: explain(valid[r]))
 
 
-def kept_share(p, m, v):
-    """Of the (query block, db tile) pairs below the lane's extents, the
-    share that K4 / K5's keep rule keeps (``radius_tile_keep``)."""
+def kept_share(p, m, dbkeep, radius):
+    """Of the (query block, db tile) pairs below the lane's extents (the
+    query rows of ``m``, the db rows of ``dbkeep``), the share that the
+    FPFH kernels' keep rule at ``radius`` keeps (``radius_tile_keep``)."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
 
-    keep = m & v
     qb = -(-int(knn_cuda.lane_extents(m)) // fs.FP_BLOCK)
-    tb = -(-int(knn_cuda.lane_extents(keep)) // fs.FP_TILE)
+    tb = -(-int(knn_cuda.lane_extents(dbkeep)) // fs.FP_TILE)
     if qb == 0 or tb == 0:
         return 0.0
-    kept = fs.radius_tile_keep(p, m, keep, 1.5)[:qb, :tb]
+    kept = fs.radius_tile_keep(p, m, dbkeep, radius)[:qb, :tb]
     return float(torch.mean(kept.float()))
 
 
-def fpfh_parity(tag, P, M, NRM, NV, errs=None, batched=True, far=()):
-    """K4 / K5 (``batched``: K4b / K5b) on the Morton-sorted lanes of
-    (B, N) clouds, as ``fpfh_radius`` / ``fpfh_radius_batched`` call them,
-    one radius prune shared by both: against the plain versions on every
-    lane (masked query rows zero; valid rows within K4's rules, K5's
-    1e-2 / 1e-4 and radius boundaries; for the lanes in ``far``, a
-    boundary band widened by the fp32 expansion's error); K4 on the
-    unsorted lanes equal after unpermuting; K5's count column equal to
-    K4's; with ``batched``, each lane equal to the single kernel; a repeat
-    bit-identical.  Returns ``FpfhSorted``."""
+def moments_parity(tag, p, m, errs=None, batched=True, far=()):
+    """K3 (``batched``: K3b) on (B, N) lanes: against ``moments_plain`` on
+    every lane (masked query rows zero; valid rows within 1e-3 / 1e-5,
+    each row beyond holding a pair on 0.9 m or 0.6 m; for the lanes in
+    ``far``, that band widened by the fp32 expansion's error); with its
+    own prune and with one given, equal; with ``batched``, each lane equal
+    to the single kernel; a repeat bit-identical.  Returns the plain
+    moments."""
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.parity import radius_boundary_rows
+
+    sfx = "b" if batched else ""
+    key = "moments" + "_b" * batched
+
+    def k3(prune=None):
+        if batched:
+            return fs.moments_batched(p, m, 0.9, 0.6, prune)
+        return fs.moments(p[0], m[0], 0.9, 0.6, prune)[None]
+
+    prune = fs.radius_prune(p, m)
+    got = k3(prune)
+    want = fs.moments_batched_plain(p, m, 0.9, 0.6)
+    for i in range(p.shape[0]):
+        err = check_fpfh_rows(
+            f"K3{sfx} {tag} lane {i}", got[i], want[i], m[i], 1e-3, 1e-5,
+            lambda r: radius_boundary_rows(p[i], m[i], r, (0.9, 0.6),
+                                           i in far))
+        if errs is not None:
+            errs[key] = max(errs[key], err)
+    same(f"K3{sfx} {tag} repeat", (k3(prune),), (got,))
+    same(f"K3{sfx} {tag} own prune", (k3(),), (got,))
+    if batched:
+        same_lanes(f"K3b {tag}", got,
+                   lambda i: fs.moments(p[i], m[i], 0.9, 0.6))
+    return want
+
+
+def fpfh_parity(tag, P, M, VP=None, errs=None, batched=True, far=()):
+    """K3-K5 (``batched``: K3b-K5b) on the Morton-sorted lanes of (B, N)
+    clouds, as ``fpfh_radius`` / ``fpfh_radius_batched`` call them: K3 as
+    ``moments_parity`` says; the normals from the plain moments, toward
+    the viewpoints ``VP`` (B, 3) or each lane's centroid; K4 / K5 with one
+    radius prune shared by both, against the plain versions on every lane
+    (masked query rows zero; valid rows within K4's rules, K5's 1e-2 /
+    1e-4 and radius boundaries; for the lanes in ``far``, a boundary band
+    widened by the fp32 expansion's error); K4 on the unsorted lanes equal
+    after unpermuting; K5's count column equal to K4's; with ``batched``,
+    each lane equal to the single kernel; a repeat bit-identical.
+    Returns ``FpfhSorted``."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
@@ -407,8 +494,16 @@ def fpfh_parity(tag, P, M, NRM, NV, errs=None, batched=True, far=()):
                                                   spfh_rows_explained)
 
     sfx = "b" if batched else ""
+    b, nr = M.shape
+    VP = fs._viewpoints(P, M, VP)
     order = knn_cuda.morton_order_batched(P, M)
-    p, m, n, v = (knn_cuda.take_rows(x, order) for x in (P, M, NRM, NV))
+    p, m = knn_cuda.take_rows(P, order), knn_cuda.take_rows(M, order)
+    mom = moments_parity(tag, p, m, errs, batched, far)
+    n, v, _, _ = fs.moments_to_normals_covs(
+        mom.reshape(b * nr, 20), p.reshape(b * nr, 3), m.reshape(-1),
+        VP[:, None, :].expand(b, nr, 3).reshape(b * nr, 3))
+    n, v = n.reshape(b, nr, 3).contiguous(), v.reshape(b, nr)
+    NRM, NV = knn_cuda.put_rows(n, order), knn_cuda.put_rows(v, order)
     prune = fs.radius_prune(p, m, v)
 
     def k4(*a, prune=None):
@@ -455,25 +550,26 @@ def fpfh_parity(tag, P, M, NRM, NV, errs=None, batched=True, far=()):
                    lambda i: fs.spfh(p[i], m[i], n[i], v[i], 1.5))
         same_lanes(f"K5b {tag}", ag_k,
                    lambda i: fs.fpfh_agg(p[i], m[i], v[i], spn[i], 1.5))
-    share = float(np.mean([kept_share(p[i], m[i], v[i])
+    share = float(np.mean([kept_share(p[i], m[i], m[i] & v[i], 1.5)
                            for i in range(P.shape[0])]))
-    log(f"K4{sfx} / K5{sfx} {tag}: Morton-sorted lanes; masked rows zero, "
-        f"sorted == unsorted (K4), count columns equal, repeats equal"
-        f"{', every lane == its single kernel' if batched else ''}; the "
-        f"keep rule keeps {share:.4f} of the (block, tile) pairs below the "
-        f"extents")
-    return FpfhSorted(p, m, n, v, spn, prune, share)
+    share3 = float(np.mean([kept_share(p[i], m[i], m[i], 0.9)
+                            for i in range(P.shape[0])]))
+    log(f"K3{sfx} / K4{sfx} / K5{sfx} {tag}: Morton-sorted lanes; masked "
+        f"rows zero, sorted == unsorted (K4), count columns equal, repeats "
+        f"equal{', every lane == its single kernel' if batched else ''}; "
+        f"the keep rule keeps {share3:.4f} (K3, 0.9 m) and {share:.4f} "
+        f"(K4 / K5, 1.5 m) of the (block, tile) pairs below the extents")
+    return FpfhSorted(p, m, n, v, spn, prune, share, share3)
 
 
 def fpfh_edge_cases(store):
-    """K4b / K5b on four lanes of the bench source at the bench padding:
+    """K3b-K5b on four lanes of the bench source at the bench padding:
     holed (30 % of rows dropped and the last fifth masked, so both extents
     end before N), all-masked, moved 500 m from the origin, and with 300
     valid points duplicated (d2 = 0 pairs)."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
-    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
 
     src, sm = _single_frame(store, 1, bp.SRC_CAP, 0.3)
@@ -487,23 +583,17 @@ def fpfh_edge_cases(store):
     far = src + torch.tensor([500.0, -300.0, 40.0], device=src.device)
     P = torch.stack([src, src, far, dup]).contiguous()
     M = torch.stack([holed, torch.zeros_like(sm), sm, sm])
-    nrm, nv = [], []
-    for i in range(4):
-        mom = fs.moments_plain(P[i], M[i], 0.9, 0.6)
-        n_, v_, _, _ = fs.moments_to_normals_covs(mom, P[i], M[i], None)
-        nrm.append(n_)
-        nv.append(v_)
     srt = fpfh_parity("edge cases (holed, all-masked, 500 m, duplicates)",
-                      P, M, torch.stack(nrm).contiguous(), torch.stack(nv),
-                      far=(2,))
+                      P, M, far=(2,))
     torch.cuda.synchronize()
-    return srt.share
+    return srt
 
 
 def kernel_parity(store, src_cap, dst_cap, errs):
     """Every kernel against its plain version on the voxelized clouds
-    padded to (src_cap, dst_cap); K2 also against K1, bit for bit.
-    Returns the inputs the timing phase reuses."""
+    padded to (src_cap, dst_cap); K3 on the caller's rows and, with K4 and
+    K5, on the Morton-sorted rows (``fpfh_parity``); K2 also against K1,
+    bit for bit.  Returns the inputs the timing phase reuses."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
@@ -519,12 +609,11 @@ def kernel_parity(store, src_cap, dst_cap, errs):
                           ("dst", dst, dm, store.poses_corrected[0][:3, 3])):
         mom_k = fs.moments(p, m, 0.9, 0.6)
         mom_p = fs.moments_plain(p, m, 0.9, 0.6)
-        errs["moments"] = max(errs["moments"], check_rows(
-            f"K3 moments {tag}{caps}", mom_k, mom_p, 1e-3, 1e-5,
-            lambda r: radius_boundary_rows(p, m, r, (0.9, 0.6))))
-        nrm, nv, _, _ = fs.moments_to_normals_covs(mom_p, p, m, vp)
-        srt = fpfh_parity(f"{tag}{caps}", p[None], m[None], nrm[None],
-                          nv[None], errs, batched=False)
+        errs["moments"] = max(errs["moments"], check_fpfh_rows(
+            f"K3 {tag}{caps} on the caller's rows", mom_k, mom_p, m, 1e-3,
+            1e-5, lambda r: radius_boundary_rows(p, m, r, (0.9, 0.6))))
+        srt = fpfh_parity(f"{tag}{caps}", p[None], m[None], vp[None], errs,
+                          batched=False)
         inputs[tag] = (p, m, vp, srt)
 
     desc_s, val_s, _ = fs.fpfh_radius(src, sm, 0.9, 1.5,
@@ -607,7 +696,6 @@ def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES):
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda, se3
-    from fast_lio_sam_qn_tpu_torch.parity import radius_boundary_rows
 
     caps = f"B={lanes} @{src_cap}/{dst_cap}"
     src, sm = _single_frame(store, 1, src_cap, 0.3)
@@ -617,23 +705,7 @@ def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES):
                                                          12)):
         P, M = jittered_lanes(p, m, lanes, seed)
         vp = store.poses_corrected[k][:3, 3].expand(lanes, 3).contiguous()
-        mom_k = fs.moments_batched(P, M, 0.9, 0.6)
-        mom_p = fs.moments_batched_plain(P, M, 0.9, 0.6)
-        same_lanes(f"K3 batched {tag}{caps}", mom_k,
-                   lambda i: fs.moments(P[i], M[i], 0.9, 0.6))
-        nrm, nv = [], []
-        for i in range(lanes):
-            errs["moments_b"] = max(errs["moments_b"], check_rows(
-                f"K3 batched {tag} lane {i} {caps}", mom_k[i], mom_p[i],
-                1e-3, 1e-5, lambda r: radius_boundary_rows(
-                    P[i], M[i], r, (0.9, 0.6))))
-            n_, v_, _, _ = fs.moments_to_normals_covs(mom_p[i], P[i], M[i],
-                                                      vp[i])
-            nrm.append(n_)
-            nv.append(v_)
-        srt = fpfh_parity(f"{tag} {caps}", P, M,
-                          torch.stack(nrm).contiguous(), torch.stack(nv),
-                          errs)
+        srt = fpfh_parity(f"{tag} {caps}", P, M, vp, errs)
         desc, val, _ = fs.fpfh_radius_batched(P, M, 0.9, 1.5, vp)
         clouds[tag] = (P, M, srt, desc, val)
 
@@ -910,24 +982,29 @@ PORT_KERNELS = ("knn1_kernel", "knnk_kernel", "banded1_kernel",
                 "moments_kernel", "spfh_kernel", "agg_kernel")
 
 
-def device_ms(fn, reps: int = 10):
+def device_ms(fn, reps: int = 10, windows: int = 3):
     """Device time per call of ``fn`` spent in the port's own kernels
     (torch.profiler, after one warm-up call), without the wrapper's host
-    time and its small torch ops; None if the profiler records none."""
+    time and its small torch ops; the first of up to ``windows``
+    profiling windows that records any (a window now and then records no
+    device event), else None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages()
-             if any(k in e.key for k in PORT_KERNELS))
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if any(k in e.key for k in PORT_KERNELS))
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def kernel_ms(timing):
@@ -993,42 +1070,59 @@ def pipeline_timings(pipe, multi, feeds, card):
     torch.cuda.synchronize()
 
 
-def caller_order_route(points, mask, normals, n_valid, radius: float,
-                       batched: bool = True):
-    """``spfh_agg_sorted`` without the sort: K4 and K5 on the caller's row
-    order.  K5 then sums each row's in-radius pairs in ascending caller
-    order with the same fmaf chain as the unpruned K5 before the sorted
-    route, so this route gives that kernel's bits."""
+def k3_caller_order_route(points, mask, radii, viewpoint, batched=True):
+    """The route before the sort moved ahead of K3: K3 and the normals on
+    the caller's rows, K4 and K5 on the Morton-sorted rows.  K3 sums each
+    valid row in ascending caller order, the unpruned kernel's chain, so
+    this route gives that tree's bits."""
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
+
+    normal_radius, feature_radius, cov_radius = radii
+    viewpoint = fs._viewpoints(points, mask, viewpoint)
+    normals, n_valid, cov_reg = fs.surface_stage(
+        points, mask, normal_radius, cov_radius, viewpoint, batched)
+    order = knn_cuda.morton_order_batched(points, mask)
+    p, m, nrm, nv = (knn_cuda.take_rows(x, order)
+                     for x in (points, mask, normals, n_valid))
+    raw, agg = fs.spfh_agg(p, m, nrm, nv, feature_radius, batched)
+    desc, valid = fs._descriptor(fs._normalized_spfh(raw), raw, agg, nv)
+    return (knn_cuda.put_rows(desc, order), knn_cuda.put_rows(valid, order),
+            normals, n_valid, cov_reg)
+
+
+def caller_order_route(points, mask, radii, viewpoint, batched=True):
+    """Every stage on the caller's rows, K3-K5 included.  K5 then sums each
+    row's in-radius pairs in ascending caller order with the same fmaf
+    chain as the unpruned K5 before the sorted route, so this route gives
+    that kernel's bits."""
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
 
-    prune = fs.radius_prune(points, mask, n_valid)
-    if batched:
-        raw = fs.spfh_batched(points, mask, normals, n_valid, radius, prune)
-        return raw, fs.fpfh_agg_batched(points, mask, n_valid,
-                                        fs._normalized_spfh(raw), radius,
-                                        prune)
-    raw = fs.spfh(points[0], mask[0], normals[0], n_valid[0], radius, prune)
-    agg = fs.fpfh_agg(points[0], mask[0], n_valid[0],
-                      fs._normalized_spfh(raw), radius, prune)
-    return raw[None], agg[None]
+    return fs._stages(points, mask, radii,
+                      fs._viewpoints(points, mask, viewpoint), batched)
 
 
 def trace_fpfh_order(dev):
-    """``--trace-fpfh-order``: the pipeline run of phase 6 on the
-    Morton-sorted route and on the caller's row order, every loop event of
-    both, and the first event where they differ."""
+    """``--trace-fpfh-order``: the pipeline run of phase 6 on three routes
+    (everything on the Morton-sorted rows; K3 on the caller's rows and K4 /
+    K5 sorted; everything on the caller's rows), every loop event of each,
+    and where consecutive routes part: a decision that moves between the
+    first two comes from K3's summation order, one between the last two
+    from K4 / K5's."""
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.utils import evaluation
 
-    sorted_route = fs.spfh_agg_sorted
+    sorted_route = fs.sorted_route
     events = {}
-    for label, route in (("Morton-sorted", sorted_route),
-                         ("caller order", caller_order_route)):
-        fs.spfh_agg_sorted = route
+    for label, route in (("all sorted", sorted_route),
+                         ("K3 on caller order, K4 / K5 sorted",
+                          k3_caller_order_route),
+                         ("all on caller order", caller_order_route)):
+        fs.sorted_route = route
         try:
             pipe, gt_kf, _, ticks, _ = pipeline_run(dev)
         finally:
-            fs.spfh_agg_sorted = sorted_route
+            fs.sorted_route = sorted_route
         _, corrected = pipe.get_trajectories()
         ev = [(e.tick_time, e.query_idx, e.closest_idx, e.score, e.accepted)
               for e in pipe.loop_events]
@@ -1042,14 +1136,17 @@ def trace_fpfh_order(dev):
                 f"{e[4]}")
         log(f"  K2b launches (GICP iterations + 1) per tick: "
             f"{[(q, c, d['knn_banded_b']) for q, c, d in ticks]}")
-    a, b = events.values()
-    moved = [i for i, (x, y) in enumerate(zip(a, b))
-             if (x[1], x[2], x[4]) != (y[1], y[2], y[4])]
-    rel = max((abs(x[3] - y[3]) / max(abs(y[3]), 1e-30)
-               for x, y in zip(a, b)), default=0.0)
-    log(f"trace: {len(a)} / {len(b)} events; decisions (query, candidate, "
-        f"accepted) differ at events {moved}; the largest relative score "
-        f"difference is {rel:.3e}")
+    labels = list(events)
+    for la, lb, cause in ((labels[0], labels[1], "K3's order"),
+                          (labels[1], labels[2], "K4 / K5's order")):
+        a, b = events[la], events[lb]
+        moved = [i for i, (x, y) in enumerate(zip(a, b))
+                 if (x[1], x[2], x[4]) != (y[1], y[2], y[4])]
+        rel = max((abs(x[3] - y[3]) / max(abs(y[3]), 1e-30)
+                   for x, y in zip(a, b)), default=0.0)
+        log(f"trace {la!r} vs {lb!r} ({cause}): {len(a)} / {len(b)} events;"
+            f" decisions (query, candidate, accepted) differ at events "
+            f"{moved}; the largest relative score difference is {rel:.3e}")
 
 
 def main() -> int:
@@ -1139,8 +1236,8 @@ def main() -> int:
                 lambda: knn.brute_knn(*desc_args, 1)),
         "knn_banded": (lambda: knn_cuda.knn_banded(*sorted_nn, 1),
                        lambda: knn_cuda.knn_banded_plain(*sorted_nn, 1)),
-        "moments": (lambda: fs.moments(p, m, 0.9, 0.6),
-                    lambda: fs.moments_plain(p, m, 0.9, 0.6)),
+        "moments": (lambda: fs.moments(sp, sm_, 0.9, 0.6),
+                    lambda: fs.moments_plain(sp, sm_, 0.9, 0.6)),
         "spfh": (lambda: fs.spfh(sp, sm_, sn, sv, 1.5),
                  lambda: fs.spfh_plain(sp, sm_, sn, sv, 1.5)),
         "agg": (lambda: fs.fpfh_agg(sp, sm_, sv, spn, 1.5),
@@ -1155,14 +1252,17 @@ def main() -> int:
             lambda: knn.brute_knn(*nn_args, 1)),
         "knn k=1 F=3 on K2's sorted GICP clouds": (
             lambda: knn_cuda.knn(*sorted_nn, 1),
-            lambda: knn.brute_knn(*sorted_nn, 1))}, card)
+            lambda: knn.brute_knn(*sorted_nn, 1)),
+        "moments on the caller's rows": (
+            lambda: fs.moments(p, m, 0.9, 0.6),
+            lambda: fs.moments_plain(p, m, 0.9, 0.6))}, card)
     k33 = extra[f"knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP}"]
     log(f"time knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP} library "
         f"yardstick (cdist, mask, min): "
         f"{cuda_ms(lambda: knn_library(*pdesc_args)):.4f} ms against the "
         f"kernel's {k33[0]:.4f} ms (call) / {kernel_ms(k33):.4f} ms (device) "
         f"[{card}]")
-    P, M, bsrt, bdesc, bval = clouds["src"]
+    P, _, bsrt, bdesc, bval = clouds["src"]
     D, DM = clouds["dst"][:2]
     ddesc, dval = clouds["dst"][3:]
     bfp = tuple(bsrt[:4])
@@ -1173,8 +1273,9 @@ def main() -> int:
         "knn_banded_b": (
             lambda: knn_cuda.knn_banded_batched(*bsorted, 1),
             lambda: knn_cuda.knn_banded_batched_plain(*bsorted, 1)),
-        "moments_b": (lambda: fs.moments_batched(P, M, 0.9, 0.6),
-                      lambda: fs.moments_batched_plain(P, M, 0.9, 0.6)),
+        "moments_b": (
+            lambda: fs.moments_batched(bsrt.p, bsrt.m, 0.9, 0.6),
+            lambda: fs.moments_batched_plain(bsrt.p, bsrt.m, 0.9, 0.6)),
         "spfh_b": (lambda: fs.spfh_batched(*bfp, 1.5),
                    lambda: fs.spfh_batched_plain(*bfp, 1.5)),
         "agg_b": (lambda: fs.fpfh_agg_batched(bsrt.p, bsrt.m, bsrt.v,
@@ -1184,7 +1285,7 @@ def main() -> int:
     }, card))
     log(f"batched kernel shapes: B={P.shape[0]}; K1 F=33 "
         f"{P.shape[1]}x{D.shape[1]}; K2 F=3 sorted {P.shape[1]}x"
-        f"{D.shape[1]}; K3-K5 {P.shape[1]} rows (K4, K5 Morton-sorted)")
+        f"{D.shape[1]}; K3-K5 {P.shape[1]} rows, Morton-sorted")
 
     knn_in = {"knn": desc_args, "knn_banded": sorted_nn,
               "knn_b": (bdesc, bval, ddesc, dval), "knn_banded_b": bsorted}
@@ -1194,15 +1295,40 @@ def main() -> int:
         log(f"time {key} library yardstick (cdist, mask, min): "
             f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
             f"(call) / {kernel_ms(ms[key]):.4f} ms (device) [{card}]")
+    fpfh_in = {
+        "moments": (moments_library, (sp, sm_), "cdist, radius masks, W @ "
+                    "features", lambda: fs.moments(sp, sm_, 0.9, 0.6), sm_),
+        "agg": (agg_library, (sp, sm_, sv, spn), "cdist, masks, rsqrt(d2) @ "
+                "SPFH", lambda: fs.fpfh_agg(sp, sm_, sv, spn, 1.5), sm_),
+        "moments_b": (moments_library, (bsrt.p, bsrt.m), "cdist, radius "
+                      "masks, W @ features", lambda: fs.moments_batched(
+                          bsrt.p, bsrt.m, 0.9, 0.6), bsrt.m),
+        "agg_b": (agg_library, (bsrt.p, bsrt.m, bsrt.v, bsrt.spn), "cdist, "
+                  "masks, rsqrt(d2) @ SPFH", lambda: fs.fpfh_agg_batched(
+                      bsrt.p, bsrt.m, bsrt.v, bsrt.spn, 1.5), bsrt.m)}
+    for key, (fn, args, what, kern, qm) in fpfh_in.items():
+        diff = torch.abs(fn(*args) - kern())[qm]
+        library[key] = cuda_ms(lambda: fn(*args))
+        log(f"time {key} library yardstick ({what}, fp32): "
+            f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
+            f"(call) / {kernel_ms(ms[key]):.4f} ms (device); largest "
+            f"|yardstick - kernel| on valid rows {float(diff.max()):.3e} "
+            f"[{card}]")
+        del diff
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     bkeep = [knn_cuda.block_tile_keep(*(a[i] for a in bsorted), 1)
              for i in range(bsorted[0].shape[0])]
     keep = sm_ & sv
     bkeep_fp = bsrt.m & bsrt.v
-    # K4 / K5 skip the pairs the radius prune rules out: their bound counts
+    # K3-K5 skip the pairs the radius prune rules out: their bound counts
     # the in-radius pairs' math only (the all-pairs figure, with 9 flops of
     # distance test per valid pair, beside it in the log)
     all_pairs = {
+        "moments": radius_bound(sp, sm_, sm_, (0.9, 0.6), 9, (16, 10), 13,
+                                80),
+        "moments_b": radius_bound(bsrt.p, bsrt.m, bsrt.m, (0.9, 0.6), 9,
+                                  (16, 10), 13, 80),
         "spfh": radius_bound(sp, sm_, keep, (1.5,), 9, (75,), 26, 136),
         "agg": radius_bound(sp, sm_, keep, (1.5,), 9, (68,), 146, 136),
         "spfh_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 9, (75,),
@@ -1213,12 +1339,14 @@ def main() -> int:
         "knn": knn_bound(*desc_args, 1),
         "knn_banded": knn_bound(*sorted_nn, 1, keep=knn_cuda.block_tile_keep(
             *sorted_nn, 1)),
-        "moments": radius_bound(p, m, m, (0.9, 0.6), 9, (16, 10), 13, 80),
+        "moments": radius_bound(sp, sm_, sm_, (0.9, 0.6), 0, (16, 10), 13,
+                                80),
         "spfh": radius_bound(sp, sm_, keep, (1.5,), 0, (75,), 26, 136),
         "agg": radius_bound(sp, sm_, keep, (1.5,), 0, (68,), 146, 136),
         "knn_b": knn_bound(bdesc, bval, ddesc, dval, 1),
         "knn_banded_b": knn_bound(*bsorted, 1, keep=bkeep),
-        "moments_b": radius_bound(P, M, M, (0.9, 0.6), 9, (16, 10), 13, 80),
+        "moments_b": radius_bound(bsrt.p, bsrt.m, bsrt.m, (0.9, 0.6), 0,
+                                  (16, 10), 13, 80),
         "spfh_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 0, (75,),
                                26, 136),
         "agg_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 0, (68,),
@@ -1230,9 +1358,11 @@ def main() -> int:
         log(f"bound {key}: {b_ms:.5f} ms by {by}{old}; kernel "
             f"{kernel_ms(ms[key]):.4f} ms (the bound is "
             f"{b_ms / kernel_ms(ms[key]):.3f} of it)")
-    log(f"K4 / K5 keep rule: {srt.share:.4f} of the (block, tile) pairs "
-        f"below the extents kept on the bench source, {bsrt.share:.4f} on "
-        f"the B={P.shape[0]} lanes at the pipeline padding")
+    log(f"keep rule: of the (block, tile) pairs below the extents, K3 "
+        f"(0.9 m over mask) keeps {srt.share3:.4f} on the bench source and "
+        f"{bsrt.share3:.4f} on the B={P.shape[0]} lanes at the pipeline "
+        f"padding; K4 / K5 (1.5 m over mask & n_valid) {srt.share:.4f} and "
+        f"{bsrt.share:.4f}")
     for label, lc in runs.items():
         t = cuda_ms(lambda: lc.fetch_and_perform(store, 1))
         log(f"time attempt {label}: {t:.3f} ms per fetch_and_perform "

@@ -227,9 +227,9 @@ __global__ void __launch_bounds__(kFpThreads)
 }  // namespace
 
 // The tile boxes (ceil(n / 32), 6) of b clouds, [lo xyz | hi xyz] over the
-// points of keep (mask & n_valid) below db_end, that K4 and K5 of the same
-// clouds share.  pts (n, 3), keep (n,), db_end (b,) int32, every operand
-// (b, ...) contiguous.
+// points of keep below db_end: the db set of a radius prune (mask for K3;
+// mask & n_valid, which K4 and K5 of the same clouds share).  pts (n, 3),
+// keep (n,), db_end (b,) int32, every operand (b, ...) contiguous.
 FLSQ_API int flsq_fpfh_boxes(const float* pts, const uint8_t* keep, const int* db_end, int b,
                              int n, float* tbox, void* stream) {
   const int n_tiles = flsq::ceil_div(n, kFpTile);

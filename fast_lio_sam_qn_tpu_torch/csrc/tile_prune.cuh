@@ -1,12 +1,14 @@
-// The bbox prune that K2 (knn_banded.cu), K4 (fpfh_spfh.cu) and K5
-// (fpfh_agg.cu) share: per-tile boxes of the valid db points, the box of a
-// query block's valid rows, and the ascending list of the tiles a block
-// keeps, compacted with a warp-ballot prefix sum so that a skipped tile
-// costs no barrier.  K2 applies its k-th-bound rule to these pieces; the
-// FPFH kernels apply the radius rule below and share their CTA layout.
+// The bbox prune that K2 (knn_banded.cu), K3 (fpfh_moments.cu), K4
+// (fpfh_spfh.cu) and K5 (fpfh_agg.cu) share: per-tile boxes of the valid db
+// points, the box of a query block's valid rows, and the ascending list of
+// the tiles a block keeps, compacted with a warp-ballot prefix sum so that
+// a skipped tile costs no barrier.  K2 applies its k-th-bound rule to these
+// pieces; the FPFH kernels apply the radius rule below and share their CTA
+// layout.
 //
-// Radius keep rule (K4, K5).  For a query block b (the box of its valid
-// queries) and a db tile t (the box of its points in mask & n_valid):
+// Radius keep rule (K3, K4, K5).  For a query block b (the box of its valid
+// queries) and a db tile t (the box of its points in the kernel's db set:
+// mask for K3, at the larger of its two radii; mask & n_valid for K4, K5):
 //
 //   keep(b, t) = tile t non-empty and
 //                g2(b, t) <= r2 * 1.03 + 2^-19 * (far2(b) + far2(t))
@@ -221,10 +223,11 @@ static __device__ int fp_keep_list(const float* __restrict__ pts, const uint8_t*
       [&](int t) { return radius_keep(tbox, t, blo, bhi, far2_b, r2s); }, s_list);
 }
 
-// Zero rows q0 .. q0 + kFpBlock - 1 (below n) of an (n, kFpOut) output.
+// Zero rows q0 .. q0 + kFpBlock - 1 (below n) of an (n, COLS) output.
+template <int COLS = kFpOut>
 static __device__ __forceinline__ void fp_store_zero(float* __restrict__ out, int q0, int n) {
   const int rows = min(kFpBlock, n - q0);
-  for (int e = threadIdx.x; e < rows * kFpOut; e += kFpThreads) out[(size_t)q0 * kFpOut + e] = 0.0f;
+  for (int e = threadIdx.x; e < rows * COLS; e += kFpThreads) out[(size_t)q0 * COLS + e] = 0.0f;
 }
 
 // The query rows of this thread's warp in the distance phase: coordinates,

@@ -36,12 +36,12 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream as void*, sizes as int; each
 # kernel takes a batch count b (its grid's y axis) before its sizes; the kNN
 # kernels also take the lanes' extents and, at k = 1, a split count (grid z)
-# with its partials; K4 and K5 take the extents and the tile boxes that
+# with its partials; K3, K4 and K5 take the extents and the tile boxes that
 # flsq_fpfh_boxes builds
 _SIGNATURES = {
     "flsq_knn": (_P,) * 8 + (_I,) * 6 + (_P,) * 5,
     "flsq_knn_banded": (_P,) * 8 + (_I,) * 5 + (_P,) * 6,
-    "flsq_fpfh_moments": (_P, _P, _P, _I, _I, _F, _F, _P, _P),
+    "flsq_fpfh_moments": (_P,) * 7 + (_I, _I, _F, _F, _P, _P),
     "flsq_fpfh_boxes": (_P, _P, _P, _I, _I, _P, _P),
     "flsq_fpfh_spfh": (_P,) * 9 + (_I, _I, _F, _P, _P),
     "flsq_fpfh_agg": (_P,) * 8 + (_I, _I, _F, _P, _P),

@@ -22,15 +22,17 @@ query block by query block, over the points that may qualify, so they
 track the JAX package on the CPU; the kernels use the same
 expansion on the same |q|^2, |v|^2 operands.
 
-K4 and K5 skip the (query block, db tile) pairs that the radius keep rule
-(``radius_tile_keep``, csrc/tile_prune.cuh) shows to hold no pair within
-the radius, and stop at each lane's extents; they write zero rows for
-masked queries.  The prune skips work only when the cloud is compact in
-row order, so on CUDA ``fpfh_radius`` and ``fpfh_radius_batched`` run K4
-and K5 on the Morton-sorted cloud (``spfh_agg_sorted``, the reference's
-``use_tpu`` route) and return every output in the caller's row order.  K3
-still runs on the unsorted cloud, and CPU tensors keep the unsorted plain
-route (the reference's CPU path does not sort either).
+K3, K4 and K5 skip the (query block, db tile) pairs that the radius keep
+rule (``radius_tile_keep``, csrc/tile_prune.cuh) shows to hold no pair
+within the radius (K3 at the larger of its two radii), and stop at each
+lane's extents; they write zero rows for masked queries.  The prune skips
+work only when the cloud is compact in row order, so on CUDA
+``fpfh_radius`` and ``fpfh_radius_batched`` Morton-sort each lane once,
+ahead of K3 (``sorted_route``, the reference's ``use_tpu`` route), run
+every stage on the sorted rows and return every output in the caller's
+row order.  CPU tensors keep the unsorted plain route (the reference's
+CPU path does not sort either); ``sorted_route`` runs on them too, with
+the plain versions on the sorted rows.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ _NBINS = 11
 _BIG = 3.4e38
 TQ = 128          # query rows per block of the plain versions
 PLANE_EPS = 1e-3  # gicp.PLANE_EPS
-FP_BLOCK = 32     # query rows a CTA of K4 / K5 (csrc/tile_prune.cuh kFpBlock)
+FP_BLOCK = 32     # query rows a CTA of K3-K5 (csrc/tile_prune.cuh kFpBlock)
 FP_TILE = 32      # db rows a tile of their keep rule (kFpTile)
 FP_MAX_TILES = 4096
 D2_ERR = 2.0 ** -19  # the keep rule's bound on the expansion's error (kD2Err)
@@ -126,27 +128,32 @@ def moments_plain(points, mask, radius: float, cov_radius: float):
     return torch.cat(out)
 
 
-def _launch_moments(points, mask, radius: float, cov_radius: float):
+def _launch_moments(points, mask, radius: float, cov_radius: float, prune):
     b, n, _ = points.shape
     _check_clouds("moments", points, ((mask, "mask", torch.bool, ()),))
-    qq = sq_norms(points)
-    dd = _db_norms(points, mask)
+    if prune is None:
+        prune = radius_prune(points, mask)
+    _require_prune("moments", prune, points)
     out = torch.empty((b, n, 20), dtype=torch.float32, device=points.device)
     lib = kernels.load_library()
     with torch.cuda.device(points.device):
         status = lib.flsq_fpfh_moments(
-            points.data_ptr(), qq.data_ptr(), dd.data_ptr(), b, n,
-            radius * radius, cov_radius * cov_radius, out.data_ptr(),
-            kernels.stream(points))
+            points.data_ptr(), prune.qq.data_ptr(), prune.dd.data_ptr(),
+            mask.data_ptr(), prune.q_end.data_ptr(), prune.db_end.data_ptr(),
+            prune.tbox.data_ptr(), b, n, radius * radius,
+            cov_radius * cov_radius, out.data_ptr(), kernels.stream(points))
     kernels.check_status(status, "fpfh moments")
     return out
 
 
-def moments(points, mask, radius: float, cov_radius: float):
-    """(N, 20) moments at (radius, cov_radius) — kernel K3 on CUDA."""
+def moments(points, mask, radius: float, cov_radius: float, prune=None):
+    """(N, 20) moments at (radius, cov_radius) — kernel K3 on CUDA, where
+    rows of masked queries are zero.  ``prune``: ``radius_prune(points,
+    mask)`` with a leading batch axis of 1 (made here when None)."""
     if not kernels.on_cuda("moments", points):
         return moments_plain(points, mask, radius, cov_radius)
-    out = _launch_moments(points[None], mask[None], radius, cov_radius)
+    out = _launch_moments(points[None], mask[None], radius, cov_radius,
+                          prune)
     moments.launches += 1
     return out[0]
 
@@ -159,11 +166,13 @@ def moments_batched_plain(points, mask, radius: float, cov_radius: float):
         lambda p, m: moments_plain(p, m, radius, cov_radius), points, mask)
 
 
-def moments_batched(points, mask, radius: float, cov_radius: float):
-    """(B, N, 20) moments of B clouds — kernel K3 in one launch on CUDA."""
+def moments_batched(points, mask, radius: float, cov_radius: float,
+                    prune=None):
+    """(B, N, 20) moments of B clouds — kernel K3 in one launch on CUDA;
+    ``prune`` as in ``moments``."""
     if not kernels.on_cuda("moments_batched", points):
         return moments_batched_plain(points, mask, radius, cov_radius)
-    out = _launch_moments(points, mask, radius, cov_radius)
+    out = _launch_moments(points, mask, radius, cov_radius, prune)
     moments_batched.launches += 1
     return out
 
@@ -187,6 +196,13 @@ def _mom_comps(mom10):
     return cnt, mean, (c00, c01, c02, c11, c12, c22)
 
 
+def _centroid(points, mask):
+    """The mean of the valid points of one (N, 3) cloud: the viewpoint
+    when none is given."""
+    return torch.sum(points * mask[:, None], 0) / torch.clamp(
+        torch.sum(mask).to(points.dtype), min=1.0)
+
+
 def moments_to_normals_covs(mom, points, mask, viewpoint):
     """(N, 20) radius moments -> (normals, n_valid, cov_reg, mean).
 
@@ -200,8 +216,7 @@ def moments_to_normals_covs(mom, points, mask, viewpoint):
     _, evecs = linalg3.eigh3_soa(*comps)
     n = torch.stack([evecs[0][0], evecs[1][0], evecs[2][0]], dim=-1)
     if viewpoint is None:
-        viewpoint = torch.sum(points * mask[:, None], 0) / torch.clamp(
-            torch.sum(mask).to(points.dtype), min=1.0)
+        viewpoint = _centroid(points, mask)
     to_view = viewpoint - points  # viewpoint (3,) or one per point (N, 3)
     n = n * torch.where(torch.sum(n * to_view, -1, keepdim=True) < 0,
                         -1.0, 1.0)
@@ -223,14 +238,14 @@ def moments_to_normals_covs(mom, points, mask, viewpoint):
 
 
 # ---------------------------------------------------------------------------
-# the radius prune that K4 and K5 share
+# the radius prune of K3, K4 and K5
 # ---------------------------------------------------------------------------
 
 def radius_tile_keep(points, qmask, dbkeep, radius: float,
                      block: int = FP_BLOCK, tile: int = FP_TILE):
     """(n_blocks, n_tiles) bool: may db tile t (``tile`` rows of the points
     in ``dbkeep``) hold a point within ``radius`` of a query of block b
-    (``block`` rows of the points in ``qmask``)?  The model of K4 / K5's
+    (``block`` rows of the points in ``qmask``)?  The model of K3-K5's
     keep rule, csrc/tile_prune.cuh: tile t non-empty and g2(b, t) <= r2 *
     PRUNE_SLACK + D2_ERR * (far2(b) + far2(t)), with g2 the smallest
     squared gap between the two boxes and far2 a box's largest |p|^2.  The
@@ -256,11 +271,12 @@ def radius_tile_keep(points, qmask, dbkeep, radius: float,
 
 
 class RadiusPrune(NamedTuple):
-    """What K4 and K5 of the same (B, N) clouds share: |p|^2 (qq), |p|^2
-    with the +3.4e38 penalty outside mask & n_valid (dd), each lane's
-    query and db extents (``knn_cuda.lane_extents`` of mask and of mask &
-    n_valid) and the tile boxes of mask & n_valid (B, ceil(N / FP_TILE),
-    6), all on the clouds' device."""
+    """A radius kernel's view of (B, N) clouds over its db set (K3: mask;
+    K4 and K5, which share one: mask & n_valid): |p|^2 (qq), |p|^2 with
+    the +3.4e38 penalty outside the db set (dd), each lane's query and db
+    extents (``knn_cuda.lane_extents`` of mask and of the db set) and the
+    tile boxes of the db set (B, ceil(N / FP_TILE), 6), all on the clouds'
+    device."""
     qq: torch.Tensor
     dd: torch.Tensor
     q_end: torch.Tensor
@@ -268,17 +284,20 @@ class RadiusPrune(NamedTuple):
     tbox: torch.Tensor
 
 
-def radius_prune(points, mask, n_valid) -> RadiusPrune:
-    """``RadiusPrune`` of (B, N, 3) CUDA clouds: one tile-box launch and a
-    few small torch ops, no host read."""
+def radius_prune(points, mask, n_valid=None) -> RadiusPrune:
+    """``RadiusPrune`` of (B, N, 3) CUDA clouds over mask (K3's, when
+    ``n_valid`` is None) or mask & n_valid (K4 and K5's): one tile-box
+    launch and a few small torch ops, no host read."""
     b, n, _ = points.shape
     n_tiles = -(-n // FP_TILE)
     if n_tiles > FP_MAX_TILES:
         raise ValueError(f"the FPFH kernels take N <= "
                          f"{FP_TILE * FP_MAX_TILES}; got N={n}")
-    _check_clouds("radius_prune", points, (
-        (mask, "mask", torch.bool, ()), (n_valid, "n_valid", torch.bool, ())))
-    keep = mask & n_valid
+    masks = [(mask, "mask", torch.bool, ())]
+    if n_valid is not None:
+        masks.append((n_valid, "n_valid", torch.bool, ()))
+    _check_clouds("radius_prune", points, masks)
+    keep = mask if n_valid is None else mask & n_valid
     qq = sq_norms(points)
     db_end = knn_cuda.lane_extents(keep)
     tbox = torch.empty((b, n_tiles, 6), dtype=torch.float32,
@@ -538,41 +557,87 @@ def _descriptor(spfh_n, raw, agg, n_valid):
     return torch.where(valid[..., None], desc, 0.0), valid
 
 
-def spfh_agg_sorted(points, mask, normals, n_valid, radius: float,
-                    batched: bool = True):
-    """K4 then K5 of (B, N, ...) clouds on their Morton-sorted rows, the
-    reference's ``use_tpu`` route (fpfh_stream.py:630-662): one argsort,
-    one gather per operand, one ``radius_prune`` shared by both kernels,
-    and one scatter back per output.  Returns (raw SPFH (B, N, 34),
-    aggregation (B, N, 34)) in the caller's row order.  ``batched``: one
-    K4b and one K5b launch for all lanes; else B = 1 through the
-    single-cloud K4 and K5.  On CPU tensors the plain versions run on the
-    sorted rows."""
-    order = knn_cuda.morton_order_batched(points, mask)
-    p, m, nrm, nv = (knn_cuda.take_rows(x, order)
-                     for x in (points, mask, normals, n_valid))
-    prune = radius_prune(p, m, nv) if kernels.on_cuda(
-        "spfh_agg_sorted", p) else None
+def spfh_agg(points, mask, normals, n_valid, radius: float, batched: bool):
+    """K4 then K5 of (B, N, ...) clouds on the rows given, with one
+    ``radius_prune`` shared by both kernels on CUDA: (raw SPFH (B, N, 34),
+    aggregation (B, N, 34)).  ``batched``: one K4b and one K5b launch for
+    all lanes; else B = 1 through the single-cloud K4 and K5."""
+    prune = radius_prune(points, mask, n_valid) if kernels.on_cuda(
+        "spfh_agg", points) else None
     if batched:
-        raw = spfh_batched(p, m, nrm, nv, radius, prune)
-        agg = fpfh_agg_batched(p, m, nv, _normalized_spfh(raw), radius,
-                               prune)
+        raw = spfh_batched(points, mask, normals, n_valid, radius, prune)
+        return raw, fpfh_agg_batched(points, mask, n_valid,
+                                     _normalized_spfh(raw), radius, prune)
+    raw = spfh(points[0], mask[0], normals[0], n_valid[0], radius, prune)
+    agg = fpfh_agg(points[0], mask[0], n_valid[0], _normalized_spfh(raw),
+                   radius, prune)
+    return raw[None], agg[None]
+
+
+def surface_stage(points, mask, normal_radius: float, cov_radius: float,
+                  viewpoint, batched: bool):
+    """K3 (``batched``: K3b; else B = 1 through the single-cloud K3) and
+    the normals and plane covariances of (B, N) clouds on the rows given,
+    each lane's normals oriented toward its row of ``viewpoint`` (B, 3):
+    (normals (B, N, 3), n_valid (B, N), cov_reg (B, N, 3, 3))."""
+    b, n, _ = points.shape
+    if batched:
+        mom = moments_batched(points, mask, normal_radius, cov_radius)
     else:
-        raw = spfh(p[0], m[0], nrm[0], nv[0], radius, prune)[None]
-        agg = fpfh_agg(p[0], m[0], nv[0], _normalized_spfh(raw[0]), radius,
-                       prune)[None]
-    return knn_cuda.put_rows(raw, order), knn_cuda.put_rows(agg, order)
+        mom = moments(points[0], mask[0], normal_radius, cov_radius)[None]
+    vp = viewpoint[:, None, :].expand(b, n, 3).reshape(b * n, 3)
+    normals, n_valid, cov_reg, _ = moments_to_normals_covs(
+        mom.reshape(b * n, 20), points.reshape(b * n, 3), mask.reshape(-1),
+        vp)
+    return (normals.reshape(b, n, 3).contiguous(), n_valid.reshape(b, n),
+            cov_reg.reshape(b, n, 3, 3))
 
 
-def _spfh_agg(points, mask, normals, n_valid, radius: float, batched: bool):
-    """(raw SPFH, aggregation) of (B, N, ...) clouds: on CUDA the sorted
-    route, on CPU the plain versions on the caller's rows."""
+def _stages(points, mask, radii, viewpoint, batched: bool):
+    """Every stage of ``fpfh_radius_batched`` on the rows given: (desc,
+    valid, normals, n_valid, cov_reg), each (B, N, ...).  ``radii`` =
+    (normal, feature, cov)."""
+    normal_radius, feature_radius, cov_radius = radii
+    normals, n_valid, cov_reg = surface_stage(
+        points, mask, normal_radius, cov_radius, viewpoint, batched)
+    raw, agg = spfh_agg(points, mask, normals, n_valid, feature_radius,
+                        batched)
+    desc, valid = _descriptor(_normalized_spfh(raw), raw, agg, n_valid)
+    return desc, valid, normals, n_valid, cov_reg
+
+
+def _viewpoints(points, mask, viewpoint):
+    """(B, 3) viewpoints: those given, else each lane's valid centroid on
+    the rows given (``_centroid`` on that lane's (N, 3) rows)."""
+    if viewpoint is not None:
+        return viewpoint
+    return torch.stack([_centroid(p, m) for p, m in zip(points, mask)])
+
+
+def sorted_route(points, mask, radii, viewpoint, batched: bool = True):
+    """The card's route, the reference's ``use_tpu`` one
+    (fpfh_stream.py:630-663), over (B, N) clouds: one Morton sort per lane
+    (one argsort for all lanes) ahead of K3, one gather of the points and
+    the mask, every stage on the sorted rows (``_stages``), and one
+    scatter back per output: (desc, valid, normals, n_valid, cov_reg) in
+    the caller's row order.  ``viewpoint`` None takes each lane's centroid
+    on the caller's rows, before the sort, so it keeps its bits.  On CPU
+    tensors the plain versions run on the sorted rows."""
+    viewpoint = _viewpoints(points, mask, viewpoint)
+    order = knn_cuda.morton_order_batched(points, mask)
+    outs = _stages(knn_cuda.take_rows(points, order),
+                   knn_cuda.take_rows(mask, order), radii, viewpoint,
+                   batched)
+    return tuple(knn_cuda.put_rows(o, order) for o in outs)
+
+
+def _route(points, mask, radii, viewpoint, batched: bool):
+    """On CUDA the sorted route; on CPU every stage on the caller's rows,
+    as the reference's CPU path."""
     if kernels.on_cuda("fpfh_radius", points):
-        return spfh_agg_sorted(points, mask, normals, n_valid, radius,
-                               batched)
-    raw = spfh_batched_plain(points, mask, normals, n_valid, radius)
-    return raw, fpfh_agg_batched_plain(points, mask, n_valid,
-                                       _normalized_spfh(raw), radius)
+        return sorted_route(points, mask, radii, viewpoint, batched)
+    return _stages(points, mask, radii, _viewpoints(points, mask, viewpoint),
+                   batched)
 
 
 def fpfh_radius(points, mask, normal_radius: float, feature_radius: float,
@@ -581,16 +646,13 @@ def fpfh_radius(points, mask, normal_radius: float, feature_radius: float,
 
     Returns (desc (N, 33), valid (N,), (normals, n_valid, cov_reg)), where
     cov_reg are the Nano-GICP regularized plane covariances at cov_radius
-    (see the reference's fpfh_radius for why 0.6 m).  On CUDA, K4 and K5
-    run on the Morton-sorted cloud (``spfh_agg_sorted``)."""
-    radius = float(feature_radius)
-    mom = moments(points, mask, float(normal_radius), float(cov_radius))
-    normals, n_valid, cov_reg, _ = moments_to_normals_covs(
-        mom, points, mask, viewpoint)
-    raw, agg = (o[0] for o in _spfh_agg(
-        points[None], mask[None], normals[None], n_valid[None], radius,
-        batched=False))
-    desc, valid = _descriptor(_normalized_spfh(raw), raw, agg, n_valid)
+    (see the reference's fpfh_radius for why 0.6 m); normals face
+    ``viewpoint`` (3,), the valid centroid when None.  On CUDA every stage
+    runs on the Morton-sorted cloud (``sorted_route``)."""
+    radii = (float(normal_radius), float(feature_radius), float(cov_radius))
+    vp = None if viewpoint is None else viewpoint[None]
+    desc, valid, normals, n_valid, cov_reg = (o[0] for o in _route(
+        points[None], mask[None], radii, vp, batched=False))
     return desc, valid, (normals, n_valid, cov_reg)
 
 
@@ -599,19 +661,9 @@ def fpfh_radius_batched(points, mask, normal_radius: float,
                         cov_radius: float = 0.6):
     """``fpfh_radius`` of B clouds of equal padding — (B, N, 3) points,
     (B, N) masks, (B, 3) viewpoints — with one K3, one K4 and one K5
-    launch for the whole batch (K4 and K5 on the Morton-sorted lanes).
+    launch for the whole batch (on CUDA on the Morton-sorted lanes).
     Returns the same tuple with a leading batch axis on every tensor."""
-    b, n, _ = points.shape
-    radius = float(feature_radius)
-    mom = moments_batched(points, mask, float(normal_radius),
-                          float(cov_radius))
-    vp = viewpoint[:, None, :].expand(b, n, 3).reshape(b * n, 3)
-    normals, n_valid, cov_reg, _ = moments_to_normals_covs(
-        mom.reshape(b * n, 20), points.reshape(b * n, 3), mask.reshape(-1),
-        vp)
-    normals = normals.reshape(b, n, 3).contiguous()
-    n_valid = n_valid.reshape(b, n)
-    raw, agg = _spfh_agg(points, mask, normals, n_valid, radius,
-                         batched=True)
-    desc, valid = _descriptor(_normalized_spfh(raw), raw, agg, n_valid)
-    return desc, valid, (normals, n_valid, cov_reg.reshape(b, n, 3, 3))
+    radii = (float(normal_radius), float(feature_radius), float(cov_radius))
+    desc, valid, normals, n_valid, cov_reg = _route(points, mask, radii,
+                                                    viewpoint, batched=True)
+    return desc, valid, (normals, n_valid, cov_reg)

@@ -1,12 +1,14 @@
-"""The radius prune of kernels K4 and K5 and their Morton-sorted route
-(ops/fpfh_stream.py ``radius_tile_keep``, ``spfh_agg_sorted``), on the CPU.
+"""The radius prune of kernels K3, K4 and K5 and the K4 / K5 step of the
+Morton-sorted route (ops/fpfh_stream.py ``radius_tile_keep``,
+``spfh_agg``, ``sorted_route``), on the CPU.
 
 - ``radius_tile_keep`` (the model of csrc/tile_prune.cuh's keep rule) keeps
   every (query block, db tile) pair that holds a pair whose fp32 d2 passes
   the radius test: d2 by the plain version's expansion, by an emulation of
   the kernels' fmaf chain, and exact in float64; on the 700-point cloud of
   tests/test_torch_fpfh_stream.py, on the same cloud 500 m out, with
-  duplicate points (d2 = 0) and with holed masks.
+  duplicate points (d2 = 0) and with holed masks; at K4 / K5's 1.5 m over
+  mask & n_valid and at K3's 0.9 m (the larger of its radii) over mask.
 - The kernels' contract on that rule: the histogram and the aggregation
   over the pairs of kept (block, tile) pairs equal the unpruned ones on
   every valid query row, exactly; masked query rows are zero.
@@ -89,16 +91,18 @@ def _kernel_d2(q, v, qq, vv):
     return (a + vv[None, :]).astype(np.float32)
 
 
+@pytest.mark.parametrize("kernel", ["K4K5", "K3"])
 @pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
 @pytest.mark.parametrize("name", CASES)
-def test_radius_tile_keep_keeps_every_pair(name, sort):
+def test_radius_tile_keep_keeps_every_pair(name, sort, kernel):
+    """K4 / K5: 1.5 m over mask & n_valid; K3: 0.9 m over mask."""
     pts, mask, _, n_valid = _case(name)
     p, m, v = _t(pts, mask, n_valid)
     if sort:
         _, (p, m, v) = _sorted(p, m, v)
-    keep = m & v
-    kept = fs.radius_tile_keep(p, m, keep, R)
-    r2 = np.float32(R * R)
+    radius, keep = (R, m & v) if kernel == "K4K5" else (0.9, m)
+    kept = fs.radius_tile_keep(p, m, keep, radius)
+    r2 = np.float32(radius * radius)
     qq = fs.sq_norms(p)
     d2_plain = fs._block_d2(p, p, fs._db_norms(p, keep)).numpy()
     pn = p.numpy()
@@ -178,18 +182,27 @@ def _ref_tensors(ref, *keys):
     return _t(*(ref[k] for k in keys))
 
 
+def _sorted_spfh_agg(p, m, nrm, nv):
+    """The sorted route's K4 / K5 step by hand: sort, ``spfh_agg`` (the
+    plain batched versions) on the sorted rows, unsort."""
+    order = knn_cuda.morton_order_batched(p[None], m[None])
+    srt = (knn_cuda.take_rows(x[None], order) for x in (p, m, nrm, nv))
+    return tuple(knn_cuda.put_rows(o, order)[0]
+                 for o in fs.spfh_agg(*srt, R, batched=True))
+
+
 def test_sorted_route_spfh_matches_jax(jax_ref):
-    """``spfh_agg_sorted``'s SPFH (plain K4 on the sorted rows, unsorted
+    """The sorted route's SPFH (plain K4 on the sorted rows, unsorted
     back) against the JAX package, valid rows."""
     p, m, nrm, nv = _ref_tensors(jax_ref, "pts", "mask", "nrm", "nv")
-    raw, _ = fs.spfh_agg_sorted(p[None], m[None], nrm[None], nv[None], R)
+    raw, _ = _sorted_spfh_agg(p, m, nrm, nv)
     for key in ("raw", "raw_tpu"):
         want = _t(jax_ref[key])[0]
         rows = torch.nonzero(m).flatten()[
-            parity.rows_beyond(raw[0][m], want[m], 1e-3, 0.0)]
+            parity.rows_beyond(raw[m], want[m], 1e-3, 0.0)]
         assert len(rows) <= 3, (key, rows)
         if len(rows):
-            ok = parity.spfh_rows_explained(raw[0], want, p, nrm, m & nv,
+            ok = parity.spfh_rows_explained(raw, want, p, nrm, m & nv,
                                             rows, R)
             assert bool(ok.all()), (key, rows[~ok])
 
@@ -214,15 +227,14 @@ def test_sorted_route_aggregation_matches_jax(jax_ref):
 
 
 def test_sorted_route_returns_the_callers_rows(jax_ref):
-    """``spfh_agg_sorted`` returns rows in the caller's order: on the CPU,
-    where the plain versions run, its SPFH equals the unsorted plain
-    route's and its aggregation the unsorted plain K5's on the same SPFH,
-    except whole pairs at a radius or bin-edge boundary (a matmul may
-    round a pair's d2 by its row's position); K4's and K5's count
+    """The sorted route's K4 / K5 step returns rows in the caller's order:
+    on the CPU, where the plain versions run, its SPFH equals the unsorted
+    plain route's and its aggregation the unsorted plain K5's on the same
+    SPFH, except whole pairs at a radius or bin-edge boundary (a matmul
+    may round a pair's d2 by its row's position); K4's and K5's count
     columns are equal."""
     p, m, nrm, nv = _ref_tensors(jax_ref, "pts", "mask", "nrm", "nv")
-    raw, agg = (o[0] for o in fs.spfh_agg_sorted(
-        p[None], m[None], nrm[None], nv[None], R))
+    raw, agg = _sorted_spfh_agg(p, m, nrm, nv)
     raw_u = fs.spfh(p, m, nrm, nv, R)
     agg_u = fs.fpfh_agg(p, m, nv, fs._normalized_spfh(raw), R)
     rows = parity.rows_beyond(raw, raw_u, 1e-3, 0.0)
