@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's loop-closure attempt and its pose-graph pipeline
-on one CUDA card.
+"""Drive the PyTorch port's loop-closure attempt, its pose-graph pipeline
+and its per-scan LIO on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -65,14 +65,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    candidates, the pose-graph solve at full capacity and the pipeline's
    feeds, with CUDA events (median of 10 calls) or the host clock where a
    host read ends the call;
-9. prints the kernel table as one JSON line (time, launches on the main
+9. lio_golden: the 240-scan sim golden through the port, ``run.
+   sim_lio_stream`` (the "sim" preset) replayed into ``FastLioSamQnPipeline``
+   with the golden's capacities: 34 keyframes, 4-8 committed pairs, 12 loop
+   events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); LIO ms per
+   scan and its stage spans (CUDA events), feed ms, peak memory;
+10. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
+   0.5 m) on a straight drive, 10 warm and 20 timed scans: every scan
+   after the first matches planes, the final position error within 2x the
+   CPU run's (``KITTI_CPU_ERR``); ms per scan and stage spans, host syncs
+   and kernels per scan, peak memory;
+11. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
+   poses within 1e-4 m / 1e-4 rad; each scan from the CPU's state gives
+   the CPU's match count;
+12. lio_repeat: one scan at the sim width twice from one state, the map,
+   nav state and P bit-identical; host syncs and kernels per scan;
+13. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
-   result line.  K3, K4 and K5 skip what the radius prune rules out, so
+   result line.  The LIO launches none of K1-K5 (its reference has no
+   Pallas kernel).  K3, K4 and K5 skip what the radius prune rules out, so
    their bound counts the math of the pairs within the radius only (the
    all-pairs figure is logged beside it).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1149,6 +1166,330 @@ def trace_fpfh_order(dev):
             f"{moved}; the largest relative score difference is {rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the per-scan LIO (Slice D)
+# ---------------------------------------------------------------------------
+
+GOLDEN_SCANS, GOLDEN_HZ = 240, 5.0
+# the final position error (m) of the lio_kitti run (30 scans at the
+# kitti width) through the port on the CPU of the H100 host: `python3 -m
+# fast_lio_sam_qn_tpu_torch.tools.profile_insert --drift --device cpu`
+KITTI_CPU_ERR = 5.373919584431193
+SMALL_WIDTH = dict(max_points_per_scan=2048, map_table_size=1 << 13)
+
+
+class EventSpans:
+    """Named spans timed with CUDA events, with the ``span(name)`` of
+    ``utils.profiling.Profiler``; ``ms(name)`` reads them after a sync.
+    A span measures the device's clock between the work enqueued before
+    it and after it, host-bound gaps included."""
+
+    def __init__(self):
+        self.events = {}
+
+    @contextlib.contextmanager
+    def span(self, name):
+        import torch
+
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            yield
+        finally:
+            b.record()
+            self.events.setdefault(name, []).append((a, b))
+
+    def ms(self, name, skip=0):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events[name][skip:]]
+
+    def report(self, label, card, skip=0):
+        for name in self.events:
+            t = self.ms(name, skip)
+            log(f"{label} span {name}: median {np.median(t):.3f} ms, p90 "
+                f"{np.percentile(t, 90):.3f} ms, mean {np.mean(t):.3f} ms "
+                f"over {len(t)} (CUDA events) [{card}]")
+
+
+class PhaseMemory:
+    """Peak device memory of a phase above what was allocated when it
+    started (earlier phases' tensors excluded)."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.dev = dev
+        self.base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def __str__(self):
+        import torch
+
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        return (f"peak device memory {(peak - self.base) / 2**30:.3f} GiB "
+                f"above the phase's start ({peak / 2**30:.3f} GiB in all)")
+
+
+def golden_config():
+    """The 240-scan sim golden's config: the "sim" preset with run_sim's
+    capacities (tests/test_golden.py:25-37)."""
+    from fast_lio_sam_qn_tpu_torch.configs.presets import get_pipeline_config
+    from fast_lio_sam_qn_tpu_torch.utils.config import Capacities
+
+    cfg = get_pipeline_config("sim")
+    cfg.caps = Capacities(max_keyframes=256, max_loop_factors=32,
+                          keyframe_points=2048, src_points=2048,
+                          dst_points=4096)
+    return cfg
+
+
+def golden_world():
+    from fast_lio_sam_qn_tpu_torch.utils import sim
+
+    return (sim.World.room(size=26.0, height=5.0, n_boxes=10, seed=3),
+            sim.Trajectory.loop(radius=7.0, period=40.0))
+
+
+def syncs_and_launches(fn):
+    """(host syncs, kernels on the card, kernel-launch calls, the syncs'
+    source lines) of one call of ``fn``: the syncs counted by torch's sync
+    debug mode (garbage collection held off, so that no finalizer of an
+    earlier phase's objects lands in the count), the kernels and launch
+    calls by torch.profiler."""
+    import gc
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # the first switch into the debug mode in a process records one sync
+    # of its own (inside torch.cuda): switch once before counting
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            gc.enable()
+    sites = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    kernels = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
+    calls = sum(e.count for e in ka
+                if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                             "cuLaunchKernel", "cuLaunchKernelEx"))
+    return len(sites), kernels, calls, sites
+
+
+def lio_golden(dev, card):
+    """The 240-scan sim golden through the port on the card:
+    ``run.sim_lio_stream`` with the "sim" preset (26 m room, 7 m loop
+    lapped every 40 s, 5 Hz scans), replayed into the pipeline with the
+    golden's capacities; 34 keyframes, 4-8 committed pairs, 12 loop
+    events and ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.pipeline import FastLioSamQnPipeline
+    from fast_lio_sam_qn_tpu_torch.run import sim_lio_stream
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation
+
+    cfg = golden_config()
+    world, traj = golden_world()
+    spans = EventSpans()
+    mem = PhaseMemory(dev)
+    t0 = time.perf_counter()
+    feed = list(sim_lio_stream(cfg, world, traj, GOLDEN_SCANS, GOLDEN_HZ,
+                               prof=spans, device=dev))
+    torch.cuda.synchronize()
+    log(f"lio_golden stream: {GOLDEN_SCANS} scans of "
+        f"{cfg.lio.max_points_per_scan} points in "
+        f"{time.perf_counter() - t0:.1f} s (simulation included), {mem}")
+    spans.report("lio_golden (sim width)", card, skip=1)
+    poses = torch.stack([f[0] for f in feed])
+    if not bool(torch.isfinite(poses).all()):
+        raise AssertionError("lio_golden: a non-finite LIO pose")
+
+    for cnt in launch_counters().values():
+        cnt.launches = 0
+    mem = PhaseMemory(dev)
+    pipe = FastLioSamQnPipeline(cfg, device=dev)
+    gt, feed_ms = [], []
+    for pose, cloud, mask, t1, gt_pose in feed:
+        a = time.perf_counter()
+        pipe.feed(pose, cloud, mask, t1)
+        feed_ms.append((time.perf_counter() - a) * 1e3)
+        gt.append(gt_pose)
+    log(f"lio_golden replay: kernel launches {launches_now()}, {mem}")
+    log(f"lio_golden feed: median {np.median(feed_ms):.3f} ms, p90 "
+        f"{np.percentile(feed_ms, 90):.3f} ms, max {max(feed_ms):.3f} ms over "
+        f"{len(feed_ms)} feeds (host clock; feed ends in a host read) "
+        f"[{card}]")
+    for name, st in pipe.profiler.summary().items():
+        log(f"  span {name}: {st}")
+    period = 1.0 / GOLDEN_HZ
+    gtn = np.stack(gt)
+    gt_kf = [gtn[min(int(round(t / period)) - 1, len(gtn) - 1)]
+             for t in pipe.kf_timestamps]
+    _, corrected = pipe.get_trajectories()
+    ate = evaluation.ate_rmse(corrected, np.stack(gt_kf))
+    kf, pairs = pipe.current_kf_idx, len(pipe.loop_idx_pairs)
+    events = len(pipe.loop_events)
+    log(f"lio_golden: {kf} keyframes, {events} loop events, "
+        f"{sum(e.accepted for e in pipe.loop_events)} accepted, {pairs} "
+        f"committed, ATE {ate!r} m (pinned: 34, 12, 4-8, 0.0417 m +- 20 %)")
+    if not (kf == 34 and 4 <= pairs <= 8 and events == 12
+            and abs(ate - 0.0417) < 0.2 * 0.0417):
+        raise AssertionError(f"lio_golden: {kf} keyframes, {pairs} pairs, "
+                             f"{events} events, ATE {ate}")
+
+
+def lio_kitti(dev, card):
+    """The LIO at the kitti width (``LioConfig()``: 32,768 points, 2^19
+    slots, 0.5 m) on a straight 2 m/s drive through a 120 m room, 10 warm
+    scans then 20 timed: every scan after the first matches planes, the
+    final position error stays within 2x the same run's on the CPU."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.tools import profile_insert as pi
+
+    spans = EventSpans()
+    mem = PhaseMemory(dev)
+    lio, state = pi.kitti_lio(dev, profiler=spans)
+    matches = []
+    for s in range(pi.KITTI_SCANS):
+        inputs = pi.kitti_inputs(s)
+        with spans.span("lio"):
+            state, res = lio.process_scan(state, *inputs)
+        matches.append(res.num_matches)
+    torch.cuda.synchronize()
+    matches = [int(m) for m in matches]
+    err = float(np.linalg.norm(res.pose.cpu().numpy()[:3, 3]
+                               - pi.kitti_truth(inputs[-1])[:3, 3]))
+    log(f"lio_kitti: {pi.KITTI_SCANS} scans, matches {matches}, final "
+        f"position error {err!r} m (the CPU run's {KITTI_CPU_ERR!r} m), "
+        f"{mem}")
+    spans.report("lio_kitti (kitti width, 20 timed scans)", card, skip=10)
+    syncs, kernels, calls, sites = syncs_and_launches(
+        lambda: lio.process_scan(state, *inputs))
+    log(f"lio_kitti per scan: {syncs} host syncs ({', '.join(sites)}), "
+        f"{kernels} kernels on the card, {calls} launch calls")
+    if not all(m > 0 for m in matches[1:]):
+        raise AssertionError(f"lio_kitti: a scan matched no plane {matches}")
+    if KITTI_CPU_ERR is not None and not err <= 2 * KITTI_CPU_ERR:
+        raise AssertionError(f"lio_kitti: error {err} m beyond 2x the CPU "
+                             f"run's {KITTI_CPU_ERR} m")
+
+
+def lio_card_vs_cpu(dev):
+    """5 scans of the golden's stream at a small width (2,048 points, 2^13
+    slots) through the port on the card and on the CPU: free-running poses
+    within 1e-4 m and 1e-4 rad, and each scan run on the card from the CPU
+    run's state before it gives the CPU's match count and pose."""
+    import dataclasses
+
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.lio import LIO
+    from fast_lio_sam_qn_tpu_torch.ops import se3
+    from fast_lio_sam_qn_tpu_torch.run import initial_state, sim_scan_inputs
+
+    cfg = dataclasses.replace(golden_config().lio, **SMALL_WIDTH)
+    world, traj = golden_world()
+    lios = {d: LIO(cfg, device=d) for d in (dev, torch.device("cpu"))}
+    states = {d: initial_state(lio, traj) for d, lio in lios.items()}
+    cpu = torch.device("cpu")
+
+    def to(x, d):
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(to(v, d) for v in x))
+        return x
+
+    worst = [0.0, 0.0, 0.0, 0.0]
+    counts = []
+    for i in range(5):
+        inputs = sim_scan_inputs(world, traj, i, 1.0 / GOLDEN_HZ,
+                                 4 * cfg.max_points_per_scan)
+        shared = to(states[cpu], dev)
+        _, r_shared = lios[dev].process_scan(shared, *inputs)
+        out = {}
+        for d, lio in lios.items():
+            states[d], out[d] = lio.process_scan(states[d], *inputs)
+        for k, (a, b) in enumerate(((out[dev].pose, out[cpu].pose),
+                                    (r_shared.pose, out[cpu].pose))):
+            a, b = a.double().cpu(), b.double()
+            worst[2 * k] = max(worst[2 * k],
+                               float((a[:3, 3] - b[:3, 3]).abs().max()))
+            worst[2 * k + 1] = max(worst[2 * k + 1], float(torch.linalg.norm(
+                se3.so3_log(a[:3, :3].T @ b[:3, :3]))))
+        counts.append((int(out[dev].num_matches), int(out[cpu].num_matches),
+                       int(r_shared.num_matches)))
+    log(f"lio_card_vs_cpu: free-running poses differ by at most "
+        f"{worst[0]:.3e} m / {worst[1]:.3e} rad; each scan from the CPU's "
+        f"state: {worst[2]:.3e} m / {worst[3]:.3e} rad; matches (card, CPU, "
+        f"card from the CPU's state) {counts}")
+    if not (worst[0] < 1e-4 and worst[1] < 1e-4 and worst[2] < 1e-4
+            and worst[3] < 1e-4):
+        raise AssertionError("lio_card_vs_cpu: poses differ beyond 1e-4")
+    if any(c[1] != c[2] for c in counts):
+        raise AssertionError("lio_card_vs_cpu: match counts differ")
+
+
+def lio_repeat(dev, card):
+    """One process_scan at the sim width run twice from the same state on
+    the card: key, mom, plane, nbr, the nav state and P bit-identical; the
+    scan's host syncs and kernels are counted on a third run."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.lio import LIO
+    from fast_lio_sam_qn_tpu_torch.run import initial_state, sim_scan_inputs
+
+    cfg = golden_config().lio
+    world, traj = golden_world()
+    lio = LIO(cfg, device=dev)
+    state = initial_state(lio, traj)
+    raw_n = 4 * cfg.max_points_per_scan
+    for i in range(6):
+        state, _ = lio.process_scan(
+            state, *sim_scan_inputs(world, traj, i, 1.0 / GOLDEN_HZ, raw_n))
+    inputs = sim_scan_inputs(world, traj, 6, 1.0 / GOLDEN_HZ, raw_n)
+    a, _ = lio.process_scan(state, *inputs)
+    b, _ = lio.process_scan(state, *inputs)
+    torch.cuda.synchronize()
+    fields = {"key": (a.grid.key, b.grid.key), "mom": (a.grid.mom, b.grid.mom),
+              "plane": (a.grid.plane, b.grid.plane),
+              "nbr": (a.grid.nbr, b.grid.nbr), "P": (a.P, b.P)}
+    fields.update({f"nav.{k}": (getattr(a.nav, k), getattr(b.nav, k))
+                   for k in a.nav._fields})
+    differ = [k for k, (x, y) in fields.items() if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"lio_repeat: {differ} differ")
+    syncs, kernels, calls, sites = syncs_and_launches(
+        lambda: lio.process_scan(state, *inputs))
+    log(f"lio_repeat: one scan at the sim width twice from one state: "
+        f"{', '.join(fields)} bit-identical; per scan {syncs} host syncs "
+        f"({', '.join(sites)}), {kernels} kernels on the card, {calls} "
+        f"launch calls [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1368,6 +1709,11 @@ def main() -> int:
         log(f"time attempt {label}: {t:.3f} ms per fetch_and_perform "
             f"[{card}]")
     pipeline_timings(pipe, multi, feeds, card)
+
+    lio_golden(dev, card)
+    lio_kitti(dev, card)
+    lio_card_vs_cpu(dev)
+    lio_repeat(dev, card)
 
     knn_src = "fast_lio_sam_qn_tpu/ops/pallas_knn.py"
     fs_src = "fast_lio_sam_qn_tpu/ops/fpfh_stream.py"

@@ -1,9 +1,10 @@
 """Carry state across from numpy: point clouds, masks, poses, the keyframe
-store and the pose graph.
+store, the pose graph and the LIO's filter state.
 
-The system has no learned weights; its state is clouds, poses and the
-keyframe store.  Both packages accept numpy arrays, so a test (or a
-session moved from the JAX package) feeds the same numpy state to both.
+The system has no learned weights; its state is clouds, poses, the
+keyframe store and the filter with its surfel map.  Both packages accept
+numpy arrays, so a test (or a session moved from the JAX package) feeds
+the same numpy state to both.
 """
 from __future__ import annotations
 
@@ -11,7 +12,10 @@ import numpy as np
 import torch
 
 from .models.keyframes import KeyframeStore
+from .models.lio import LioState
+from .ops.ieskf import Extrinsic, NavState
 from .ops.pgo import GraphState
+from .ops.surfel_map import SurfelMap
 
 
 def tensors_from_numpy(*arrays, device: torch.device | str):
@@ -42,6 +46,27 @@ def keyframe_store_from_numpy(clouds, cloud_masks, intensities, poses,
     return KeyframeStore(*tensors_from_numpy(
         clouds, cloud_masks, intensities, poses, poses_corrected, timestamps,
         np.int32(count), device=device))
+
+
+def lio_state_from_numpy(nav, P, grid, t, num_scans, num_matches, ext,
+                         device: torch.device | str) -> LioState:
+    """The fields of ``fast_lio_sam_qn_tpu.models.lio.LioState`` with their
+    leaves as numpy arrays: ``nav`` the six NavState fields (R, p, v, bg,
+    ba, grav), ``grid`` the SurfelMap fields (key, mom, plane, nbr, res;
+    res a float), ``ext`` (R, t) -> the port's LioState on ``device``, its
+    host scan counter set from ``num_scans``."""
+    key, mom, plane, nbr, res = grid
+    return LioState(
+        nav=NavState(*tensors_from_numpy(*nav, device=device)),
+        P=tensors_from_numpy(P, device=device)[0],
+        grid=SurfelMap(*tensors_from_numpy(key, mom, plane, nbr,
+                                           device=device), res=float(res)),
+        t=tensors_from_numpy(np.float32(t), device=device)[0],
+        num_scans=tensors_from_numpy(np.int32(num_scans), device=device)[0],
+        num_matches=tensors_from_numpy(np.int32(num_matches),
+                                       device=device)[0],
+        ext=Extrinsic(*tensors_from_numpy(*ext, device=device)),
+        scans=int(num_scans))
 
 
 def graph_state_from_numpy(poses, num_nodes, prior_pose, odom_meas, loop_i,

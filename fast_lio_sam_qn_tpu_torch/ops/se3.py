@@ -1,6 +1,6 @@
 """SE(3)/SO(3) utilities on tensors — the slice of
-fast_lio_sam_qn_tpu/ops/se3.py that loop closure, the pose graph and the
-pipeline use.
+fast_lio_sam_qn_tpu/ops/se3.py that the LIO, loop closure, the pose graph
+and the pipeline use.
 
 Same conventions as the JAX module: 4x4 homogeneous poses, tangent vectors
 ordered [rx, ry, rz, tx, ty, tz], every function broadcasts over leading
@@ -136,6 +136,16 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def split_pose(T: torch.Tensor):
     return T[..., :3, :3], T[..., :3, 3]
+
+
+def identity_pose(device: torch.device | str,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
+def compose3(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation composition Ra @ Rb (fp32; TF32 is off)."""
+    return Ra @ Rb
 
 
 def pose_inverse(T: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""Configuration of the ported path — the loop closure and the pose-graph
-pipeline fed with external odometry.
+"""Configuration of the ported path — the per-scan LIO front end, the loop
+closure and the pose-graph pipeline.
 
 The same fields and defaults as the JAX package's ``utils/config.py``
 (the reference node's *effective* values, typo'd-key defaults included)
-for every field the port reads.  The LIO block, the YAML loaders and the
-fields that only they or the unported backends read belong to entry points
-not ported yet (the per-scan LIO and the CLI) and are left out.
+for every field the port reads.  The YAML loaders and the fields that only
+they or the unported backends read belong to an entry point not ported yet
+(the CLI) and are left out.
 """
 from __future__ import annotations
 
@@ -77,6 +77,53 @@ class LoopClosureConfig:
 
 
 @dataclass
+class LioConfig:
+    """LIO front end (replaces the FAST-LIO2 node; per-dataset values map
+    from the FAST-LIO YAMLs, e.g. kitti.yaml:8-27 and kitti.launch:6-12).
+    Every field of the reference's ``LioConfig`` with its default; the port
+    runs the surfel backend with a fixed extrinsic (``models/lio.py``)."""
+
+    # preprocess
+    lidar_type: str = "velodyne"              # velodyne | ouster | livox
+    scan_line: int = 64
+    timestamp_unit: int = -1                  # 0 s, 1 ms, 2 us, 3 ns; -1 infer
+    time_offset_lidar_to_imu: float = 0.0
+    time_sync_en: bool = False
+    blind: float = 2.0                        # drop points closer than this [m]
+    point_filter_num: int = 4                 # keep every Nth point
+    # mapping / filter
+    acc_cov: float = 0.1
+    gyr_cov: float = 0.1
+    b_acc_cov: float = 1e-4
+    b_gyr_cov: float = 1e-4
+    det_range: float = 100.0
+    max_iteration: int = 3                    # IESEKF iterations (kitti.launch:8)
+    filter_size_surf: float = 0.5             # scan downsample leaf (kitti.launch:9)
+    filter_size_map: float = 0.5              # map voxel resolution (kitti.launch:10)
+    extrinsic_T: tuple = (0.0, 0.0, 0.0)      # LiDAR->IMU translation
+    extrinsic_R: tuple = (1.0, 0.0, 0.0,
+                          0.0, 1.0, 0.0,
+                          0.0, 0.0, 1.0)      # LiDAR->IMU rotation, row-major
+    # online LiDAR-IMU extrinsic refinement (kitti.yaml:22); not ported
+    extrinsic_est_en: bool = False
+    extrinsic_rw_rot: float = 1e-5
+    extrinsic_rw_trans: float = 1e-5
+    gravity: float = 9.81
+    # "surfel" = per-voxel moments with cached planes (the ported backend);
+    # "point" = one point per voxel (not ported)
+    map_backend: str = "surfel"
+    surfel_query_window: int = 1              # 1 = halo-backed lookup; 3 = 27-hood
+    surfel_hood_cap: int = 8192               # hood refits per scan (0 = unbounded)
+    surfel_hood_window: int = 7               # 7 = face hood; 27 = full 3^3
+    surfel_halo_cap: int = 4096               # halo sources per scan (0 = all)
+    # static capacities
+    max_points_per_scan: int = 32768          # padded scan capacity post-filter
+    map_table_size: int = 1 << 19             # voxel-hash slots of the local map
+    plane_k: int = 5                          # neighbors of the point backend's fit
+    plane_threshold: float = 0.1              # plane thickness gate [m]
+
+
+@dataclass
 class Capacities:
     """Static shapes replacing the reference's unbounded std::vector growth
     (the keyframe store and the graph double when full)."""
@@ -97,6 +144,7 @@ class PipelineConfig:
     keyframe_threshold: float = 1.5           # config.yaml:7 (code default 1.0)
     save_voxel_resolution: float = 0.3
     loop: LoopClosureConfig = field(default_factory=LoopClosureConfig)
+    lio: LioConfig = field(default_factory=LioConfig)
     caps: Capacities = field(default_factory=Capacities)
     # graph noise models (fast_lio_sam_qn.cpp:112,132): variances
     # diag(1e-4 rad^2 x3, 1e-2 m^2 x3) for the prior and odometry factors;
