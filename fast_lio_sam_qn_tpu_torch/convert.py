@@ -13,6 +13,7 @@ import torch
 
 from .models.keyframes import KeyframeStore
 from .models.lio import LioState
+from .ops.hashgrid import HashGrid
 from .ops.ieskf import Extrinsic, NavState
 from .ops.pgo import GraphState
 from .ops.surfel_map import SurfelMap
@@ -52,15 +53,19 @@ def lio_state_from_numpy(nav, P, grid, t, num_scans, num_matches, ext,
                          device: torch.device | str) -> LioState:
     """The fields of ``fast_lio_sam_qn_tpu.models.lio.LioState`` with their
     leaves as numpy arrays: ``nav`` the six NavState fields (R, p, v, bg,
-    ba, grav), ``grid`` the SurfelMap fields (key, mom, plane, nbr, res;
-    res a float), ``ext`` (R, t) -> the port's LioState on ``device``, its
-    host scan counter set from ``num_scans``."""
-    key, mom, plane, nbr, res = grid
+    ba, grav), ``grid`` the map's four arrays and its res (a float) — a
+    SurfelMap's (key, mom, plane, nbr) or, when the first array is a
+    float (T, 3) one, a HashGrid's (points, coords, occupied, src_idx) —
+    ``P`` 18x18 or 24x24, ``ext`` (R, t) -> the port's LioState on
+    ``device``, its host scan counter set from ``num_scans``."""
+    *arrays, res = grid
+    kind = HashGrid if np.issubdtype(np.asarray(arrays[0]).dtype,
+                                     np.floating) else SurfelMap
     return LioState(
         nav=NavState(*tensors_from_numpy(*nav, device=device)),
         P=tensors_from_numpy(P, device=device)[0],
-        grid=SurfelMap(*tensors_from_numpy(key, mom, plane, nbr,
-                                           device=device), res=float(res)),
+        grid=kind(*tensors_from_numpy(*arrays, device=device),
+                  res=float(res)),
         t=tensors_from_numpy(np.float32(t), device=device)[0],
         num_scans=tensors_from_numpy(np.int32(num_scans), device=device)[0],
         num_matches=tensors_from_numpy(np.int32(num_matches),

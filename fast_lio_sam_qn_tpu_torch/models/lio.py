@@ -1,6 +1,9 @@
 """LiDAR-inertial odometry front end — port of
-fast_lio_sam_qn_tpu/models/lio.py on its default path: the surfel map with
-``ieskf.update_surfel`` and a fixed LiDAR-IMU extrinsic.
+fast_lio_sam_qn_tpu/models/lio.py: the surfel map (``ieskf.update_surfel``,
+the default) or the one-point-per-voxel map (``map_backend="point"``,
+``ieskf.update``), with the LiDAR-IMU extrinsic fixed or co-estimated in a
+24-dim error state (``extrinsic_est_en``, ``ieskf.update_surfel_ext`` /
+``update_ext``).
 
 ``LIO.process_scan`` runs preprocess -> propagate -> deskew -> iterated
 update -> evict -> map insert and returns the scan-end pose and the
@@ -21,7 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import ieskf, se3, surfel_map, voxel
+from ..ops import hashgrid, ieskf, se3, surfel_map, voxel
 from ..utils.config import LioConfig
 
 _MEAS_VAR = 0.0025     # lidar point-to-plane noise variance (m^2)
@@ -36,12 +39,13 @@ class LioState(NamedTuple):
     """The filter state (device tensors) and the host's scan counter."""
 
     nav: ieskf.NavState
-    P: torch.Tensor
-    grid: surfel_map.SurfelMap
+    P: torch.Tensor              # (18, 18), or (24, 24) with the extrinsic
+    grid: surfel_map.SurfelMap | hashgrid.HashGrid
     t: torch.Tensor              # filter time (scan end), float32 seconds
     num_scans: torch.Tensor      # int32
     num_matches: torch.Tensor    # int32: plane matches in the last update
-    ext: ieskf.Extrinsic         # LiDAR -> IMU extrinsic (fixed)
+    ext: ieskf.Extrinsic         # LiDAR -> IMU extrinsic (filter state
+                                 # when cfg.extrinsic_est_en)
     scans: int = 0               # num_scans, on the host
 
 
@@ -63,15 +67,8 @@ class LIO:
                  device: torch.device | str = "cuda", profiler=None):
         self.cfg = cfg or LioConfig()
         c = self.cfg
-        if c.map_backend != "surfel":
-            raise NotImplementedError(
-                f"map_backend={c.map_backend!r}: the point-map backend "
-                "(ops/hashgrid.py insert/query_knn, ieskf.update) is not "
-                "ported; Slice D step 6")
-        if c.extrinsic_est_en:
-            raise NotImplementedError(
-                "extrinsic_est_en=True: the 24-dim extrinsic co-estimation "
-                "(ieskf.update_surfel_ext) is not ported; Slice D step 6")
+        if c.map_backend not in ("surfel", "point"):
+            raise ValueError(f"unknown map_backend {c.map_backend!r}")
         self.imu_cap = imu_cap
         self.device = torch.device(device)
         self.profiler = profiler
@@ -80,9 +77,11 @@ class LIO:
             device=self.device)
         self._t_li = torch.tensor(np.array(c.extrinsic_T, np.float32),
                                   device=self.device)
-        self._noise = torch.tensor(
-            np.array([c.gyr_cov, c.acc_cov, c.b_gyr_cov, c.b_acc_cov],
-                     np.float32), device=self.device)
+        noise = [c.gyr_cov, c.acc_cov, c.b_gyr_cov, c.b_acc_cov]
+        if c.extrinsic_est_en:
+            noise += [c.extrinsic_rw_rot, c.extrinsic_rw_trans]
+        self._noise = torch.tensor(np.array(noise, np.float32),
+                                   device=self.device)
 
     def _span(self, name: str):
         if self.profiler is None:
@@ -104,11 +103,13 @@ class LIO:
         if gyro_bias is not None:
             nav = nav._replace(bg=torch.tensor(
                 np.asarray(gyro_bias, np.float32), device=dev))
+        c = self.cfg
+        make = surfel_map.empty if c.map_backend == "surfel" \
+            else hashgrid.empty
         return LioState(
             nav=nav,
-            P=ieskf.init_covariance(dev),
-            grid=surfel_map.empty(self.cfg.filter_size_map,
-                                  self.cfg.map_table_size, dev),
+            P=ieskf.init_covariance(dev, est_extrinsic=c.extrinsic_est_en),
+            grid=make(c.filter_size_map, c.map_table_size, dev),
             t=torch.full((), _f32(t0), dtype=torch.float32, device=dev),
             num_scans=torch.zeros((), dtype=torch.int32, device=dev),
             num_matches=torch.zeros((), dtype=torch.int32, device=dev),
@@ -123,9 +124,12 @@ class LIO:
 
     @staticmethod
     def get_map_points(state: LioState) -> np.ndarray:
-        """The local map's voxel centroids as an (N, 3) array."""
+        """The local map as an (N, 3) array: a point map's points, a surfel
+        map's voxel centroids."""
         g = state.grid
         occ = g.occupied.cpu().numpy()
+        if isinstance(g, hashgrid.HashGrid):
+            return g.points.cpu().numpy()[occ]
         cnt = np.maximum(g.count.cpu().numpy(), 1.0)
         center = (g.coords.cpu().numpy().astype(np.float32) + 0.5) * g.res
         return (center + g.psum.cpu().numpy() / cnt[:, None])[occ]
@@ -181,35 +185,68 @@ class LIO:
             body = ieskf.deskew(pts_p, t_p, m_p, log, nav1, t0, state.ext.R,
                                 state.ext.t)
         with self._span("update"):
-            if state.scans == 0:
-                nav2, P2 = nav1, P1
-                matches = torch.zeros((), dtype=torch.int32, device=dev)
-            else:
-                nav2, P2, matches = ieskf.update_surfel(
-                    nav1, P1, state.grid, body, m_p,
-                    meas_var=_f32(_MEAS_VAR), max_iter=c.max_iteration,
-                    window=c.surfel_query_window)
+            nav2, P2, matches, ext2, body = self._update(
+                state, nav1, P1, body, m_p)
             # keep R on SO(3) once per scan (the per-sample compose chain
             # drifts off the manifold)
             nav2 = nav2._replace(R=se3.orthonormalize3(nav2.R))
+        surfel = c.map_backend == "surfel"
         with self._span("evict"):
-            grid = surfel_map.evict_beyond(state.grid, nav2.p,
-                                           _f32(c.det_range * 1.5))
+            evict = surfel_map.evict_beyond if surfel \
+                else hashgrid.evict_beyond
+            grid = evict(state.grid, nav2.p, _f32(c.det_range * 1.5))
         with self._span("insert"):
             pts_w = ieskf._ptransform(body, nav2.R, nav2.p)
-            grid = surfel_map.insert(
-                grid, pts_w, m_p, thickness=_f32(c.plane_threshold),
-                hood_cap=c.surfel_hood_cap or None,
-                halo_cap=c.surfel_halo_cap or None,
-                hood_window=c.surfel_hood_window)
+            if surfel:
+                grid = surfel_map.insert(
+                    grid, pts_w, m_p, thickness=_f32(c.plane_threshold),
+                    hood_cap=c.surfel_hood_cap or None,
+                    halo_cap=c.surfel_halo_cap or None,
+                    hood_window=c.surfel_hood_window)
+            else:
+                grid = hashgrid.insert(grid, pts_w, m_p)
         pose = torch.eye(4, dtype=torch.float32, device=dev)
         pose[:3, :3] = nav2.R
         pose[:3, 3] = nav2.p
         new_state = LioState(
             nav=nav2, P=P2, grid=grid, t=t1,
             num_scans=state.num_scans + 1, num_matches=matches,
-            ext=state.ext, scans=state.scans + 1)
+            ext=ext2, scans=state.scans + 1)
         return new_state, ScanResult(pose, body, m_p, matches, i_p)
+
+    def _update(self, state: LioState, nav1, P1, body, m_p):
+        """The iterated update of the configured backend, skipped on the
+        first scan (no map yet).  Returns (nav, P, matches, ext, body):
+        with the extrinsic co-estimated, the scan goes back to the scan-end
+        LiDAR frame, the update moves the extrinsic too, and the body cloud
+        is derived again under the updated (re-orthonormalized) one."""
+        c = self.cfg
+        kw = dict(meas_var=_f32(_MEAS_VAR), max_iter=c.max_iteration)
+        if c.map_backend == "point":
+            kw.update(plane_threshold=_f32(c.plane_threshold),
+                      plane_k=c.plane_k, window=3)
+        else:
+            kw.update(window=c.surfel_query_window)
+        first = state.scans == 0
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if not c.extrinsic_est_en:
+            if first:
+                return nav1, P1, zero, state.ext, body
+            fn = ieskf.update if c.map_backend == "point" \
+                else ieskf.update_surfel
+            nav2, P2, matches = fn(nav1, P1, state.grid, body, m_p, **kw)
+            return nav2, P2, matches, state.ext, body
+        pts_l_end = (body - state.ext.t) @ state.ext.R
+        if first:
+            nav2, ext2, P2, matches = nav1, state.ext, P1, zero
+        else:
+            fn = ieskf.update_ext if c.map_backend == "point" \
+                else ieskf.update_surfel_ext
+            nav2, ext2, P2, matches = fn(nav1, state.ext, P1, state.grid,
+                                         pts_l_end, m_p, **kw)
+        ext2 = ieskf.Extrinsic(R=se3.orthonormalize3(ext2.R), t=ext2.t)
+        body = ieskf._ptransform(pts_l_end, ext2.R, ext2.t)
+        return nav2, P2, matches, ext2, body
 
 
 def _preprocess(pts, rel_t, inten, mask, cfg: LioConfig):

@@ -1,22 +1,31 @@
-"""The voxel hash of the surfel map — the part of
-fast_lio_sam_qn_tpu/ops/hashgrid.py that ``ops/surfel_map.py`` uses: the
-double-hashed probe sequence and the scatter-min claim rounds.
+"""Voxel hash grid — port of fast_lio_sam_qn_tpu/ops/hashgrid.py: the
+double-hashed probe sequence and scatter-min claim rounds that
+``ops/surfel_map.py`` uses, and the one-point-per-voxel ``HashGrid`` of the
+LIO's ``"point"`` map backend (insert, eviction, windowed candidate
+gathers, nearest and k-nearest queries).
 
 Open addressing with NUM_PROBES probe slots per voxel: slot_p = h1 +
 p * (h2 | 1) mod T.  A claim runs NUM_PROBES rounds of bidding (each
 unplaced point bids for its next probe slot, the lowest point index wins a
-free slot), so placement is deterministic and data-parallel.
+free slot), so placement is deterministic and data-parallel.  Queries
+gather every probe slot of each neighbouring voxel and verify the stored
+coordinates, so hash aliasing never returns a wrong point.
 
 The reference hashes in uint32 arithmetic, which torch lacks on CUDA: the
 values are carried in int64, masked to 32 bits (``voxel._mul32``), and the
 slots equal the reference's exactly.  The bids are ``scatter_reduce``
-minimums, which are exact whatever the order of the writes.
+minimums, which are exact whatever the order of the writes.  The
+reference's ``lax.top_k`` keeps the lower candidate index among equal
+distances; ``query_knn`` takes the first k of a stable ascending sort,
+which keeps the same ones (``torch.topk`` promises no order among ties).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .voxel import _U32, _mul32
+from .voxel import _U32, _mul32, voxel_coords
 
 NUM_PROBES = 4
 _INT_MAX = torch.iinfo(torch.int32).max
@@ -97,3 +106,136 @@ def _scatter_rounds(occupied, winner, coords, mask, table_size,
         0, torch.where(placed, point_slot, t),
         torch.where(placed, idx, _INT_MAX), "amin", include_self=True)
     return occupied, winner, point_slot
+
+
+class HashGrid(NamedTuple):
+    """Fixed-shape voxel hash table, one representative point per voxel."""
+
+    points: torch.Tensor    # (T, 3) f32 — representative point per voxel
+    coords: torch.Tensor    # (T, 3) i32 — voxel coords for key checks
+    occupied: torch.Tensor  # (T,) bool
+    src_idx: torch.Tensor   # (T,) i32 — index of the winning source point
+    res: float              # voxel edge length
+
+    @property
+    def table_size(self) -> int:
+        return self.points.shape[0]
+
+
+def empty(res: float, table_size: int, device: torch.device | str,
+          dtype: torch.dtype = torch.float32) -> HashGrid:
+    if table_size & (table_size - 1):
+        raise ValueError(f"table_size {table_size} is not a power of 2")
+    return HashGrid(
+        points=torch.zeros((table_size, 3), dtype=dtype, device=device),
+        coords=torch.zeros((table_size, 3), dtype=torch.int32, device=device),
+        occupied=torch.zeros((table_size,), dtype=torch.bool, device=device),
+        src_idx=torch.full((table_size,), -1, dtype=torch.int32,
+                           device=device),
+        res=res)
+
+
+def contains(grid: HashGrid, coords: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int voxel coords -> bool: is this voxel in the table?"""
+    slots = _probe_slots(coords, grid.table_size)           # (..., P)
+    keys = grid.coords[slots]                               # (..., P, 3)
+    hit = torch.all(keys == coords[..., None, :], dim=-1)
+    return torch.any(grid.occupied[slots] & hit, dim=-1)
+
+
+def insert(grid: HashGrid, points: torch.Tensor,
+           mask: torch.Tensor) -> HashGrid:
+    """Insert points, keeping existing voxel occupants (add if the voxel is
+    empty).  Among new points of one voxel the lowest index whose probe
+    round claims the slot first wins; the others are dropped."""
+    t = grid.table_size
+    coords = voxel_coords(points, grid.res)
+    present = contains(grid, coords)
+    winner0 = torch.full((t + 1,), _INT_MAX, dtype=torch.int64,
+                         device=points.device)
+    occupied, winner, _ = _scatter_rounds(
+        grid.occupied, winner0, coords, mask, t, already_present=present)
+    winner = winner[:t]
+    newly = winner != _INT_MAX
+    widx = torch.where(newly, winner, 0)
+    return HashGrid(
+        points=torch.where(newly[:, None], points[widx], grid.points),
+        coords=torch.where(newly[:, None], coords[widx], grid.coords),
+        occupied=occupied,
+        src_idx=torch.where(newly, winner.to(torch.int32), grid.src_idx),
+        res=grid.res)
+
+
+def build(points: torch.Tensor, mask: torch.Tensor, res: float,
+          table_size: int) -> HashGrid:
+    """A grid of a masked point set; table_size a power of 2, best >= 4x
+    the occupied voxels."""
+    return insert(empty(res, table_size, points.device, points.dtype),
+                  points, mask)
+
+
+def evict_beyond(grid: HashGrid, center: torch.Tensor,
+                 radius: float) -> HashGrid:
+    """Drop voxels whose point lies beyond ``radius`` of ``center`` (the
+    moving-window map maintenance).  ``radius`` should be fp32-exact; its
+    square is taken in fp32, as the reference's."""
+    r = torch.tensor(radius, dtype=torch.float32)
+    d2 = torch.sum((grid.points - center[None, :]) ** 2, dim=-1)
+    keep = grid.occupied & (d2 <= float(r * r))
+    return grid._replace(occupied=keep,
+                         src_idx=torch.where(keep, grid.src_idx, -1))
+
+
+def _window_offsets(window: int, device) -> torch.Tensor:
+    """(window^3, 3) int32 offsets, the first axis slowest."""
+    r = torch.arange(window, dtype=torch.int32, device=device) - window // 2
+    ox, oy, oz = torch.meshgrid(r, r, r, indexing="ij")
+    return torch.stack([ox.reshape(-1), oy.reshape(-1), oz.reshape(-1)], -1)
+
+
+def gather_candidates(grid: HashGrid, queries: torch.Tensor,
+                      window: int = 3):
+    """For each query, every probe slot of the window^3 voxels around it,
+    key-verified.  Returns (cand_pts (M, C, 3), cand_valid (M, C),
+    cand_src (M, C)) with C = window^3 * NUM_PROBES."""
+    base = voxel_coords(queries, grid.res)                       # (M, 3)
+    ncoords = base[:, None, :] + _window_offsets(window, queries.device)
+    slots = _probe_slots(ncoords, grid.table_size)               # (M, W3, P)
+    keys = grid.coords[slots]
+    valid = grid.occupied[slots] & torch.all(
+        keys == ncoords[:, :, None, :], dim=-1)
+    m, c = queries.shape[0], slots.shape[1] * NUM_PROBES
+    return (grid.points[slots].reshape(m, c, 3), valid.reshape(m, c),
+            grid.src_idx[slots].reshape(m, c))
+
+
+def query_nn(grid: HashGrid, queries: torch.Tensor, qmask: torch.Tensor,
+             window: int = 3):
+    """Nearest neighbour within the window (the first candidate among
+    equal distances).  Returns (nn_pts (M, 3), nn_dist2 (M,), nn_src (M,),
+    found (M,))."""
+    pts, valid, src = gather_candidates(grid, queries, window)
+    d2 = torch.sum((pts - queries[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(valid, d2, torch.inf)
+    j = torch.argmin(d2, dim=-1, keepdim=True)
+    best = torch.gather(d2, 1, j)[:, 0]
+    found = torch.isfinite(best) & qmask
+    nn = torch.gather(pts, 1, j[:, :, None].expand(-1, 1, 3))[:, 0]
+    return (nn, torch.where(found, best, torch.inf),
+            torch.gather(src, 1, j)[:, 0], found)
+
+
+def query_knn(grid: HashGrid, queries: torch.Tensor, qmask: torch.Tensor,
+              k: int, window: int = 5):
+    """k nearest neighbours within the window, the lower candidate index
+    first among equal distances.  Returns (knn_pts (M, k, 3), knn_dist2
+    (M, k), knn_valid (M, k)); fewer than k in-window neighbours leave
+    trailing invalid entries."""
+    pts, valid, _ = gather_candidates(grid, queries, window)
+    d2 = torch.sum((pts - queries[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(valid & qmask[:, None], d2, torch.inf)
+    knn_d2, idx = torch.sort(d2, dim=-1, stable=True)
+    knn_d2, idx = knn_d2[:, :k], idx[:, :k]
+    knn_valid = torch.isfinite(knn_d2)
+    knn_pts = torch.gather(pts, 1, idx[:, :, None].expand(-1, -1, 3))
+    return knn_pts, knn_d2, knn_valid

@@ -183,3 +183,71 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 def pose_distance(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
     """Euclidean translation distance — the keyframe gate's predicate."""
     return torch.linalg.norm(Ta[..., :3, 3] - Tb[..., :3, 3], dim=-1)
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded fp32 square root (through float64), as XLA's;
+    torch's vectorized CPU sqrt may land one ulp off."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _unit(q: torch.Tensor) -> torch.Tensor:
+    """q over its norm.  The reference's fused program sums the squares
+    with fused multiply-adds, in order; each step is taken here in float64
+    (a product of two fp32 values is exact there) and rounded to fp32,
+    which gives the same bits."""
+    qd = q.double()
+    acc = (qd[..., 0] * qd[..., 0]).to(q.dtype)
+    for i in range(1, q.shape[-1]):
+        acc = (qd[..., i] * qd[..., i] + acc.double()).to(q.dtype)
+    return q / torch.clamp(_sqrt32(acc), min=_EPS)[..., None]
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) xyzw -> (..., 3, 3); normalizes the input."""
+    q = _unit(q)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ], dim=-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) xyzw with w >= 0: Shepperd's method, the
+    best-conditioned of four constructions picked per rotation."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return _sqrt32(torch.clamp(x, min=0.0)) * 0.5
+
+    def over(x, q):
+        return x / torch.clamp(4 * q, min=_EPS)
+
+    qw0 = half_sqrt(1.0 + tr)
+    c0 = torch.stack([over(m21 - m12, qw0), over(m02 - m20, qw0),
+                      over(m10 - m01, qw0), qw0], -1)
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([qx1, over(m01 + m10, qx1), over(m02 + m20, qx1),
+                      over(m21 - m12, qx1)], -1)
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    c2 = torch.stack([over(m01 + m10, qy2), qy2, over(m12 + m21, qy2),
+                      over(m02 - m20, qy2)], -1)
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    c3 = torch.stack([over(m02 + m20, qz3), over(m12 + m21, qz3), qz3,
+                      over(m10 - m01, qz3)], -1)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], -1)
+    best = torch.argmax(scores, dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)
+    q = torch.gather(cands, -2, best[..., None, None].expand(
+        best.shape + (1, 4)))[..., 0, :]
+    q = _unit(q)
+    return torch.where(q[..., 3:4] < 0, -q, q)

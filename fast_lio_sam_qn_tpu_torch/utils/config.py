@@ -1,15 +1,23 @@
-"""Configuration of the ported path — the per-scan LIO front end, the loop
-closure and the pose-graph pipeline.
+"""Configuration — the per-scan LIO front end, the loop closure, the
+pose-graph pipeline and the CLI's exports, with the loaders of the
+reference's YAML files.
 
 The same fields and defaults as the JAX package's ``utils/config.py``
-(the reference node's *effective* values, typo'd-key defaults included)
-for every field the port reads.  The YAML loaders and the fields that only
-they or the unported backends read belong to an entry point not ported yet
-(the CLI) and are left out.
+(the reference node's *effective* values), except the knobs of backends
+not ported yet (the kNN FPFH's neighbour caps, the sharded solve's
+threshold).  The loaders reproduce the reference node's parameter reads
+exactly: three keys are typo'd in its source —
+``/keyframe/nusubmap_keyframes`` (fast_lio_sam_qn.cpp:19),
+``/quatro/max_nucorrespondences`` (:38) and ``/quatro/rotation/numax_iter``
+(:45) — so the YAML's ``num_submap_keyframes`` / ``max_correspondences`` /
+``num_max_iter`` are ignored and the code defaults (5 / 200 / 50) win; and
+``gicp.max_corr_dist`` is derived, ``loop_detection_radius * 1.5`` (:24).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Any, Optional
 
 
 @dataclass
@@ -17,10 +25,16 @@ class GicpConfig:
     """Nano-GICP equivalent (reference defaults: fast_lio_sam_qn.cpp:26-33,
     effective values from config/config.yaml:19-28)."""
 
+    thread_number: int = 0                    # informational (batched kernels)
     icp_score_thr: float = 1.5                # config.yaml:21 (code default 10.0)
     correspondences_number: int = 15          # k for covariance kNN
     max_iter: int = 32
     transformation_epsilon: float = 0.01
+    # stored for parity, not applied: PCL's GICP never reads them on the
+    # reference's align() path
+    euclidean_fitness_epsilon: float = 0.01
+    ransac_max_iter: int = 5
+    ransac_outlier_rejection_threshold: float = 1.0
     max_corr_dist: float = 52.5               # derived: loop_detection_radius * 1.5
 
 
@@ -104,13 +118,14 @@ class LioConfig:
     extrinsic_R: tuple = (1.0, 0.0, 0.0,
                           0.0, 1.0, 0.0,
                           0.0, 0.0, 1.0)      # LiDAR->IMU rotation, row-major
-    # online LiDAR-IMU extrinsic refinement (kitti.yaml:22); not ported
+    # online LiDAR-IMU extrinsic refinement (kitti.yaml:22): a 24-dim error
+    # state from extrinsic_R / extrinsic_T as the prior
     extrinsic_est_en: bool = False
     extrinsic_rw_rot: float = 1e-5
     extrinsic_rw_trans: float = 1e-5
     gravity: float = 9.81
-    # "surfel" = per-voxel moments with cached planes (the ported backend);
-    # "point" = one point per voxel (not ported)
+    # "surfel" = per-voxel moments with cached planes; "point" = one point
+    # per voxel, planes fitted to the plane_k nearest
     map_backend: str = "surfel"
     surfel_query_window: int = 1              # 1 = halo-backed lookup; 3 = 27-hood
     surfel_hood_cap: int = 8192               # hood refits per scan (0 = unbounded)
@@ -140,9 +155,16 @@ class PipelineConfig:
     """Top-level config of the pipeline (reference: config/config.yaml +
     code defaults)."""
 
+    map_frame: str = "map"
     loop_update_hz: float = 2.0               # config.yaml:3 (code default 1.0)
+    vis_hz: float = 1.0                       # config.yaml:4 (code default 0.5)
     keyframe_threshold: float = 1.5           # config.yaml:7 (code default 1.0)
     save_voxel_resolution: float = 0.3
+    # results (config.yaml:45-49)
+    save_map_pcd: bool = True
+    save_map_bag: bool = True
+    save_in_kitti_format: bool = True
+    seq_name: str = "sequence"
     loop: LoopClosureConfig = field(default_factory=LoopClosureConfig)
     lio: LioConfig = field(default_factory=LioConfig)
     caps: Capacities = field(default_factory=Capacities)
@@ -154,3 +176,154 @@ class PipelineConfig:
     # Huber threshold on loop factors in the pose-graph solve; <= 0
     # restores the reference's raw isotropic-variance weighting
     robust_delta: float = 1.0
+
+    def apply_strict_parity(self) -> "PipelineConfig":
+        """Turn off, in place, every gate the reference lacks, so that loop
+        acceptance and weighting are the reference's: fitness-only
+        acceptance (loop_closure.cpp:129), raw isotropic loop noise
+        (fast_lio_sam_qn.cpp:226-233), the lossy latest-keyframe timer
+        (:205-210).  Returns self."""
+        self.loop.consensus_window = 0
+        self.loop.degeneracy_gate = False
+        self.loop.loop_batch = 0
+        self.robust_delta = 0.0
+        return self
+
+
+# ---------------------------------------------------------------------------
+# the reference's YAML files, with its effective-value semantics
+# ---------------------------------------------------------------------------
+
+def _lookup(tree: dict, dotted: str, default: Any) -> Any:
+    """rosparam-style lookup of 'a/b/c' in a nested dict; the code default
+    on a miss."""
+    node: Any = tree
+    for part in dotted.strip("/").split("/"):
+        if not isinstance(node, dict) or part not in node:
+            return default
+        node = node[part]
+    return node
+
+
+def _tree(path_or_dict) -> dict:
+    if isinstance(path_or_dict, dict):
+        return path_or_dict
+    import yaml  # only a file needs it
+
+    with open(path_or_dict) as f:
+        return yaml.safe_load(f) or {}
+
+
+def load_reference_yaml(path_or_dict, strict_parity: bool = True
+                        ) -> PipelineConfig:
+    """A reference-format config.yaml (a dict or a path) read as the node
+    reads it, the three typo'd keys included.  ``strict_parity`` (default)
+    also applies ``apply_strict_parity``: a config from the reference's own
+    YAML should behave as the reference; False keeps the robustness gates
+    on top of the reference's parameter values."""
+    tree = _tree(path_or_dict)
+    cfg = PipelineConfig()
+    cfg.map_frame = _lookup(tree, "basic/map_frame", "map")
+    cfg.loop_update_hz = float(_lookup(tree, "basic/loop_update_hz", 1.0))
+    cfg.vis_hz = float(_lookup(tree, "basic/vis_hz", 0.5))
+    cfg.save_voxel_resolution = float(
+        _lookup(tree, "save_voxel_resolution", 0.3))
+
+    lc = cfg.loop
+    lc.voxel_res = float(
+        _lookup(tree, "quatro_nano_gicp_voxel_resolution", 0.3))
+    cfg.keyframe_threshold = float(
+        _lookup(tree, "keyframe/keyframe_threshold", 1.0))
+    # the typo'd key of fast_lio_sam_qn.cpp:19
+    lc.num_submap_keyframes = int(
+        _lookup(tree, "keyframe/nusubmap_keyframes", 5))
+    lc.enable_submap_matching = bool(
+        _lookup(tree, "keyframe/enable_submap_matching", False))
+    lc.loop_detection_radius = float(
+        _lookup(tree, "loop/loop_detection_radius", 15.0))
+    lc.loop_detection_timediff_threshold = float(
+        _lookup(tree, "loop/loop_detection_timediff_threshold", 10.0))
+
+    gc = lc.gicp
+    gc.max_corr_dist = lc.loop_detection_radius * 1.5  # fast_lio_sam_qn.cpp:24
+    gc.thread_number = int(_lookup(tree, "nano_gicp/thread_number", 0))
+    gc.icp_score_thr = float(
+        _lookup(tree, "nano_gicp/icp_score_threshold", 10.0))
+    gc.correspondences_number = int(
+        _lookup(tree, "nano_gicp/correspondences_number", 15))
+    gc.max_iter = int(_lookup(tree, "nano_gicp/max_iter", 32))
+    gc.transformation_epsilon = float(
+        _lookup(tree, "nano_gicp/transformation_epsilon", 0.01))
+    gc.euclidean_fitness_epsilon = float(
+        _lookup(tree, "nano_gicp/euclidean_fitness_epsilon", 0.01))
+    gc.ransac_max_iter = int(_lookup(tree, "nano_gicp/ransac/max_iter", 5))
+    gc.ransac_outlier_rejection_threshold = float(
+        _lookup(tree, "nano_gicp/ransac/outlier_rejection_threshold", 1.0))
+
+    qc = lc.quatro
+    lc.enable_quatro = bool(_lookup(tree, "quatro/enable", False))
+    qc.use_optimized_matching = bool(
+        _lookup(tree, "quatro/optimize_matching", True))
+    qc.distance_threshold = float(
+        _lookup(tree, "quatro/distance_threshold", 30.0))
+    # the typo'd key of fast_lio_sam_qn.cpp:38
+    qc.max_num_corres = int(
+        _lookup(tree, "quatro/max_nucorrespondences", 200))
+    qc.fpfh_normal_radius = float(
+        _lookup(tree, "quatro/fpfh_normal_radius", 0.3))
+    qc.fpfh_radius = float(_lookup(tree, "quatro/fpfh_radius", 0.5))
+    qc.estimating_scale = bool(
+        _lookup(tree, "quatro/estimating_scale", False))
+    qc.noise_bound = float(_lookup(tree, "quatro/noise_bound", 0.3))
+    qc.rot_gnc_factor = float(
+        _lookup(tree, "quatro/rotation/gnc_factor", 1.4))
+    qc.rot_cost_diff_thr = float(
+        _lookup(tree, "quatro/rotation/rot_cost_diff_threshold", 1e-4))
+    # the typo'd key of fast_lio_sam_qn.cpp:45
+    qc.rot_max_iter = int(_lookup(tree, "quatro/rotation/numax_iter", 50))
+
+    cfg.save_map_bag = bool(_lookup(tree, "result/save_map_bag", False))
+    cfg.save_map_pcd = bool(_lookup(tree, "result/save_map_pcd", False))
+    cfg.save_in_kitti_format = bool(
+        _lookup(tree, "result/save_in_kitti_format", False))
+    cfg.seq_name = str(_lookup(tree, "result/seq_name", ""))
+    if strict_parity:
+        cfg.apply_strict_parity()
+    return cfg
+
+
+def load_lio_yaml(path_or_dict, base: Optional[LioConfig] = None
+                  ) -> LioConfig:
+    """A FAST-LIO per-dataset YAML (a dict or a path, e.g.
+    fastlio_config_launch/kitti.yaml) over ``base`` (default
+    ``LioConfig()``).  The keys it does not read (scan_rate, fov_degree,
+    the publish and pcd_save blocks) change nothing in this system."""
+    tree = _tree(path_or_dict)
+    lio = dataclasses.replace(base) if base else LioConfig()
+    lidar_types = {1: "livox", 2: "velodyne", 3: "ouster"}
+    lt = _lookup(tree, "preprocess/lidar_type", None)
+    if lt is not None:
+        lio.lidar_type = lidar_types.get(int(lt), "velodyne")
+    lio.scan_line = int(_lookup(tree, "preprocess/scan_line", lio.scan_line))
+    lio.timestamp_unit = int(
+        _lookup(tree, "preprocess/timestamp_unit", lio.timestamp_unit))
+    lio.time_offset_lidar_to_imu = float(
+        _lookup(tree, "common/time_offset_lidar_to_imu",
+                lio.time_offset_lidar_to_imu))
+    lio.blind = float(_lookup(tree, "preprocess/blind", lio.blind))
+    lio.acc_cov = float(_lookup(tree, "mapping/acc_cov", lio.acc_cov))
+    lio.gyr_cov = float(_lookup(tree, "mapping/gyr_cov", lio.gyr_cov))
+    lio.b_acc_cov = float(_lookup(tree, "mapping/b_acc_cov", lio.b_acc_cov))
+    lio.b_gyr_cov = float(_lookup(tree, "mapping/b_gyr_cov", lio.b_gyr_cov))
+    lio.det_range = float(_lookup(tree, "mapping/det_range", lio.det_range))
+    ext_t = _lookup(tree, "mapping/extrinsic_T", None)
+    if ext_t is not None:
+        lio.extrinsic_T = tuple(float(v) for v in ext_t)
+    ext_r = _lookup(tree, "mapping/extrinsic_R", None)
+    if ext_r is not None:
+        lio.extrinsic_R = tuple(float(v) for v in ext_r)
+    lio.extrinsic_est_en = bool(
+        _lookup(tree, "mapping/extrinsic_est_en", lio.extrinsic_est_en))
+    lio.time_sync_en = bool(
+        _lookup(tree, "common/time_sync_en", lio.time_sync_en))
+    return lio

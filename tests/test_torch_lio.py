@@ -184,14 +184,6 @@ def test_init_state_and_map_points_match_reference(ref_midrun):
     assert len(pts) > 1000
 
 
-@pytest.mark.parametrize("kw", [dict(map_backend="point"),
-                                dict(extrinsic_est_en=True)],
-                         ids=["point-backend", "extrinsic-estimation"])
-def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="Slice D step 6"):
-        LIO(LioConfig(**kw), device="cpu")
-
-
 def test_lio_surfel_backend_low_drift():
     """Mirror of the reference's tests/test_surfel_map.py low-drift case:
     60 scans at 10 Hz over a 24 m room's loop, final drift < 0.15 m."""

@@ -2,9 +2,11 @@
 held against the JAX package's on the same numpy feed: the revisiting run
 of tests/test_pipeline.py (26 m room, 7 m circle, drifting odometry,
 4096-ray scans) with its compact loop timing (20 s lap, 12 s time gap,
-5 m radius, 1 Hz ticks), in the lossy mode (``loop_batch = 0``) and in the
-batched mode (``loop_batch = 2``).  The batched run starts from capacities
-small enough (16 keyframes, 2 loop factors) that both grow.
+5 m radius, 1 Hz ticks), in the lossy mode (``loop_batch = 0``), in the
+batched mode (``loop_batch = 2``) and in strict parity
+(``apply_strict_parity()``: the reference's fitness-only acceptance, raw
+loop noise and lossy timer).  The batched run starts from capacities small
+enough (16 keyframes, 2 loop factors) that both grow.
 
 Loop events (query, closest, accepted) must be equal and the corrected
 trajectories within 5e-3 m (PARITY.md:153-158); a decision that differs is
@@ -24,7 +26,8 @@ from fast_lio_sam_qn_tpu_torch.utils import config as tconfig
 torch.set_num_threads(1)
 
 N_SCANS, N_RAYS, SCAN_HZ = 120, 4096, 5.0
-MODES = {"lossy": (0, 128, 16), "batched": (2, 16, 2)}
+MODES = {"lossy": (0, 128, 16), "batched": (2, 16, 2),
+         "strict": (0, 128, 16)}
 
 
 def _config(mode, config=tconfig):
@@ -38,6 +41,8 @@ def _config(mode, config=tconfig):
     cfg.loop.loop_detection_radius = 5.0
     cfg.loop.loop_batch = batch
     cfg.loop_update_hz = 1.0
+    if mode == "strict":
+        cfg.apply_strict_parity()
     return cfg
 
 
@@ -136,3 +141,33 @@ def test_getters_and_growth(runs):
     if mode == "batched":
         # both capacities grew past the configured 16 keyframes / 2 loops
         assert got["caps"][0] > 16 and got["caps"][1] > 2
+
+
+def test_consensus_gate_vs_strict_parity_commit():
+    """Mirror of tests/test_pipeline.py's case, both packages: with the
+    consensus window on, a single accepted loop waits; in strict parity
+    (the reference's YAML loaded with its defaults) it commits at once."""
+    from fast_lio_sam_qn_tpu.models.pipeline import FastLioSamQnPipeline as J
+
+    def prime(pipe):
+        for i in range(3):
+            T = np.eye(4, dtype=np.float32)
+            T[0, 3] = 2.0 * i
+            pipe.feed(T, np.zeros((64, 3), np.float32), np.ones(64, bool),
+                      float(i))
+        pipe._consensus_commit(2, 0, np.eye(4, dtype=np.float32), 0.5)
+        return list(pipe.loop_idx_pairs)
+
+    out = {}
+    for name, mod, make in (("port", tconfig, lambda c: FastLioSamQnPipeline(
+            c, device="cpu")), ("jax", jconfig, J)):
+        caps = mod.Capacities(max_keyframes=8, max_loop_factors=4,
+                              keyframe_points=256, src_points=256,
+                              dst_points=512)
+        for gate, cfg in (("native", mod.PipelineConfig()),
+                          ("strict", mod.load_reference_yaml({}))):
+            cfg.caps = caps
+            cfg.loop.loop_detection_radius = 0.0
+            out[name, gate] = prime(make(cfg))
+    assert out["port", "native"] == out["jax", "native"] == []
+    assert out["port", "strict"] == out["jax", "strict"] == [(2, 0)]
