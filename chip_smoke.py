@@ -1,6 +1,7 @@
 """Drive the PyTorch port's loop-closure attempt, its pose-graph pipeline,
 its per-scan LIO (both map backends, the extrinsic co-estimated) and its
-``--sim`` CLI on one CUDA card.
+CLI (``--sim`` and the dataset modes ``--kitti``, ``--scans/--poses``,
+``--bag``, checkpoint / resume) on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -94,7 +95,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ATE < 1 m, the exports in DIR), then 170 scans of the loop, whose loop
    attempts launch K1-K5; every kernel against its plain version, as in
    3, on the clouds of that run's first and last tick at its capacities;
-16. prints the kernel table as one JSON line (time, launches on the main
+16. native_runtime: the native host runtime (``runtime/runtime.cpp``)
+   built into build/runtime/ and in use; its scan decoders, loader, sync
+   pairs and LZ4 frames against the Python versions; bag ingest rates at
+   65,536-point scans (PointCloud2 / Livox, none / bz2 / lz4 chunks);
+17. cli_kitti: a KITTI-style directory (``tools/datasets.py``: 360 scans of
+   131,072 rays in the LiDAR frame of the kitti preset's extrinsic, 100 Hz
+   IMU from a standstill, the golden's room, a 7 m loop every 30 s) through
+   ``run.main(["--kitti", DIR, "--preset", "kitti", "--out", OUT])``: the
+   exports, ATE < 0.5 m, loop attempts that launch K1-K5, and K1-K5
+   against their plain versions on its first and last tick's clouds; LIO
+   and feed ms, scans/s, memory; then 60 scans straight against 30 with
+   ``--checkpoint`` and 30 after ``--resume`` (equal keyframes, 1e-4 m);
+18. cli_parity: the same scans in the body frame with drifted odometry,
+   ``--stamps``, ``--odom-times`` missing 5 stamps and ``--loop-batch 4``:
+   5 dropped, K1b-K5b launched and held against their plain versions on a
+   batched tick's lanes, the corrected ATE below the odometry's;
+19. cli_bag: a 60-scan full-width bag (PointCloud2 with a time field, Imu
+   at 200 Hz, lz4 chunks): ``--bag`` equal to ``bag_convert`` + ``--kitti``
+   within 1e-3 m, ``--odom-topic`` drop accounting, a Livox bag end to end;
+20. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
    result line.  The LIO launches none of K1-K5 (its reference has no
    Pallas kernel).  K3, K4 and K5 skip what the radius prune rules out, so
@@ -719,26 +739,54 @@ def lane_view(out, i):
     return lambda *args: tuple(o[i] for o in out)
 
 
-def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES):
+def tick_lanes(store, tick, src_cap, dst_cap):
+    """The lanes a batched tick ``(queries, candidates)`` registers, as
+    ``LoopClosure._register`` builds them (a pad lane, candidate -1, on
+    keyframe 0): {"src": (P, M, viewpoints), "dst": ...}."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
+
+    qs, cs = tick
+    out = {}
+    for tag, idx, cap in (("src", qs, src_cap),
+                          ("dst", [max(c, 0) for c in cs], dst_cap)):
+        P, M = (torch.stack(x).contiguous() for x in zip(
+            *(_single_frame(store, i, cap, 0.3) for i in idx)))
+        out[tag] = (P, M, store.poses_corrected[idx][:, :3, 3].contiguous())
+    return out
+
+
+def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES, tick=None):
     """Every batched kernel on ``lanes`` jittered lanes of the bench clouds
-    padded to (src_cap, dst_cap): against its plain batched version lane by
-    lane (the single-cloud tolerances and boundary rules) and against the
-    single-cloud kernel (bit for bit); K2 batched against K1 batched bit
-    for bit on Morton-sorted lanes.  Returns inputs for the timings."""
+    padded to (src_cap, dst_cap), or on the lanes of a pipeline's batched
+    ``tick`` ((queries, candidates), ``tick_lanes``): against its plain
+    batched version lane by lane (the single-cloud tolerances and boundary
+    rules) and against the single-cloud kernel (bit for bit); K2 batched
+    against K1 batched bit for bit on Morton-sorted lanes.  Returns inputs
+    for the timings."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda, se3
 
-    caps = f"B={lanes} @{src_cap}/{dst_cap}"
-    src, sm = _single_frame(store, 1, src_cap, 0.3)
-    dst, dm = _single_frame(store, 0, dst_cap, 0.3)
+    if tick is None:
+        lane_clouds = {}
+        for tag, k, cap, seed in (("src", 1, src_cap, 11),
+                                  ("dst", 0, dst_cap, 12)):
+            P, M = jittered_lanes(*_single_frame(store, k, cap, 0.3), lanes,
+                                  seed)
+            lane_clouds[tag] = (P, M, store.poses_corrected[k][:3, 3].expand(
+                lanes, 3).contiguous())
+    else:
+        lane_clouds = tick_lanes(store, tick, src_cap, dst_cap)
+        lanes = len(tick[0])
+    caps = f"B={lanes} @{src_cap}/{dst_cap}" + (
+        "" if tick is None else f" (the tick {tick[0]} -> {tick[1]})")
     clouds = {}
-    for tag, p, m, k, seed in (("src", src, sm, 1, 11), ("dst", dst, dm, 0,
-                                                         12)):
-        P, M = jittered_lanes(p, m, lanes, seed)
-        vp = store.poses_corrected[k][:3, 3].expand(lanes, 3).contiguous()
+    for tag in ("src", "dst"):
+        P, M, vp = lane_clouds[tag]
         srt = fpfh_parity(f"{tag} {caps}", P, M, vp, errs)
         desc, val, _ = fs.fpfh_radius_batched(P, M, 0.9, 1.5, vp)
         clouds[tag] = (P, M, srt, desc, val)
@@ -1620,6 +1668,59 @@ def lio_extrinsic(dev, card):
                              f"{run.pose_errs[-10:]}")
 
 
+def cli_run(args, spans=None):
+    """``run.main(args)`` in-process, as a user starts the port: returns
+    (the JSON report, wall seconds on the host clock, the pipeline it ran).
+    With ``spans`` (EventSpans) the run's Profiler spans (``lio``, ``pgo``,
+    ``io``) are also timed with CUDA events."""
+    import io
+
+    from fast_lio_sam_qn_tpu_torch import run
+    from fast_lio_sam_qn_tpu_torch.utils.profiling import Profiler
+
+    modes = ("run_sim", "run_kitti", "run_bag", "run_parity")
+    saved = {k: getattr(run, k) for k in modes + ("Profiler",)}
+    out, runs = io.StringIO(), []
+    # main returns only its exit code: keep the pipeline it ran
+    for k in modes:
+        setattr(run, k, lambda a, f=saved[k]: runs.append(f(a)) or runs[-1])
+    if spans is not None:
+        class Both(Profiler):
+            @contextlib.contextmanager
+            def span(self, name):
+                with Profiler.span(self, name), spans.span(name):
+                    yield
+
+        run.Profiler = Both
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run.main(args)
+    finally:
+        for k, v in saved.items():
+            setattr(run, k, v)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run.main {args} exited {rc}")
+    return json.loads(out.getvalue()), wall, runs[0][0]
+
+
+EXPORTS = ("poses_kitti.txt", "poses_tum.txt", "sequence_map.pcd",
+           "result.bag", "result_keyframes.npz")
+
+
+def missing_exports(report):
+    import os
+
+    seq = report["exported_to"]
+    return [f for f in EXPORTS + (os.path.join("scans", "000000.pcd"),)
+            if not os.path.exists(os.path.join(seq, f))]
+
+
+def brief(report):
+    return {k: v for k, v in report.items() if k != "timing"}
+
+
 def cli_sim(dev, card, errs):
     """``run.main`` in-process on the card, as a user starts the port:
     ``--sim --trajectory corridor --n-scans 40 --out DIR`` (the size of
@@ -1632,40 +1733,15 @@ def cli_sim(dev, card, errs):
     capacities, for its first and last loop attempt (keyframes under the
     run's final poses), into ``errs``.  Wall time of each run (host
     clock)."""
-    import io
-    import os
     import shutil
     import tempfile
 
-    from fast_lio_sam_qn_tpu_torch import run
-
-    def main(args):
-        out, runs, run_sim = io.StringIO(), [], run.run_sim
-        # main returns only its exit code: keep the pipeline it ran
-        run.run_sim = lambda a: runs.append(run_sim(a)) or runs[-1]
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = run.main(args)
-        finally:
-            run.run_sim = run_sim
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"cli_sim: {args} exited {rc}")
-        return json.loads(out.getvalue()), wall, runs[0][0]
-
     tmp = tempfile.mkdtemp(prefix="cli_sim_")
     try:
-        report, wall, _ = main(["--sim", "--trajectory", "corridor",
-                                "--n-scans", "40", "--out", tmp])
-        seq = report["exported_to"]
-        files = ["poses_kitti.txt", "poses_tum.txt", "sequence_map.pcd",
-                 "result.bag", "result_keyframes.npz",
-                 os.path.join("scans", "000000.pcd")]
-        missing = [f for f in files if not os.path.exists(
-            os.path.join(seq, f))]
-        log(f"cli_sim corridor: {wall:.1f} s wall, report "
-            f"{ {k: v for k, v in report.items() if k != 'timing'} }; "
+        report, wall, _ = cli_run(["--sim", "--trajectory", "corridor",
+                                   "--n-scans", "40", "--out", tmp])
+        missing = missing_exports(report)
+        log(f"cli_sim corridor: {wall:.1f} s wall, report {brief(report)}; "
             f"timing {report['timing']} [{card}]")
         if missing or report["keyframes"] < 5 or \
                 not report["ate_rmse_m"] < 1.0:
@@ -1673,29 +1749,441 @@ def cli_sim(dev, card, errs):
                                  f"{report}")
         for cnt in launch_counters().values():
             cnt.launches = 0
-        report, wall, pipe = main(["--sim", "--n-scans", "170",
-                                   "--no-auto-save"])
+        report, wall, pipe = cli_run(["--sim", "--n-scans", "170",
+                                      "--no-auto-save"])
         launched = launches_now()
-        log(f"cli_sim loop: {wall:.1f} s wall, report "
-            f"{ {k: v for k, v in report.items() if k != 'timing'} }; "
+        log(f"cli_sim loop: {wall:.1f} s wall, report {brief(report)}; "
             f"kernel launches {launched} [{card}]")
         if report["loop_attempts"] < 1 or not all(
-                launched[k] > 0 for k in ("knn", "knn_banded", "moments",
-                                          "spfh", "agg")):
+                launched[k] > 0 for k in SINGLE):
             raise AssertionError(f"cli_sim loop: {report}, {launched}")
-        lc, loop = pipe.loop_closure, pipe.cfg.loop
-        if (loop.loop_batch, loop.enable_quatro, loop.enable_submap_matching,
-                loop.voxel_res) != (0, True, False, 0.3):
-            raise AssertionError(f"cli_sim: the tick's clouds are not the "
-                                 f"single frames kernel_parity builds: "
-                                 f"{loop}")
-        events = pipe.loop_events
-        for ev in {(e.query_idx, e.closest_idx): e for e in (
-                events[0], events[-1])}.values():
-            kernel_parity(pipe.store, lc.src_cap, lc.dst_cap, errs,
-                          pair=(ev.query_idx, ev.closest_idx),
-                          where=f" (the CLI's tick {ev.query_idx}->"
-                                f"{ev.closest_idx})")
+        tick_kernel_parity(pipe, errs, "cli_sim")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+SINGLE = ("knn", "knn_banded", "moments", "spfh", "agg")
+
+
+def tick_kernel_parity(pipe, errs, phase):
+    """K1-K5 against their plain versions (``kernel_parity``) on the clouds
+    a run's single-candidate tick builds, at its capacities, for its first
+    and last loop attempt (keyframes under the run's final poses)."""
+    lc, loop = pipe.loop_closure, pipe.cfg.loop
+    if (loop.enable_quatro, loop.enable_submap_matching, loop.voxel_res) != \
+            (True, False, 0.3):
+        raise AssertionError(f"{phase}: the tick's clouds are not the "
+                             f"single frames kernel_parity builds: {loop}")
+    events = pipe.loop_events
+    for ev in {(e.query_idx, e.closest_idx): e for e in (
+            events[0], events[-1])}.values():
+        kernel_parity(pipe.store, lc.src_cap, lc.dst_cap, errs,
+                      pair=(ev.query_idx, ev.closest_idx),
+                      where=f" ({phase}'s tick {ev.query_idx}->"
+                            f"{ev.closest_idx})")
+
+
+# ---------------------------------------------------------------------------
+# the dataset entry points: --kitti, --scans/--poses, --bag, checkpoints
+# ---------------------------------------------------------------------------
+
+# the kitti preset at full width: 131,072 rays a scan (4x its 32,768-point
+# cap, an HDL-64 sweep's size), 10 Hz, the golden's room and a 7 m loop
+# lapped every 30 s; 360 scans give loop attempts under the 30 s / 35 m
+# gates
+DATA_SCANS, DATA_RAW, DATA_WORKERS = 360, 131072, 8
+RESUME_SCANS, BAG_SCANS = 60, 60
+INGEST_SCANS, INGEST_POINTS, INGEST_CAP = 40, 65536, 32768
+ODOM_MISSING = (40, 41, 120, 250, 251)
+
+
+def native_runtime(card, tmp):
+    """The native host runtime on the H100 host: the library loads, built
+    from the port's runtime.cpp into build/runtime/; ``read_scan`` equals
+    the Python readers on a velodyne .bin and a binary PCD of a full-width
+    scan, the prefetching loader equals ``read_scan``, the ApproximateTime
+    pairs of seeded streams equal the Python version's, an LZ4 frame
+    decodes; then ``tools/profile_ingest`` at 65,536-point scans
+    (PointCloud2 and Livox, none / bz2 / lz4 chunks) against the 10 Hz
+    budget.  Returns the ingest rows."""
+    import os
+
+    from fast_lio_sam_qn_tpu_torch.runtime import native
+    from fast_lio_sam_qn_tpu_torch.tools import datasets, profile_ingest
+
+    if not native.available():
+        raise AssertionError(f"native runtime: {native.build_error()}")
+    lib = native.library_path()
+    if lib.parent != native.BUILD_DIR or not lib.exists():
+        raise AssertionError(f"native runtime: {lib} is not the port's build")
+    s = datasets.simulate_scan(0, DATA_RAW)
+    xyzi = np.column_stack([s.points, s.intensities]).astype(np.float32)
+    paths = [os.path.join(tmp, "000000.bin"), os.path.join(tmp, "000001.pcd")]
+    xyzi.tofile(paths[0])
+    with open(paths[1], "wb") as f:
+        f.write((f"VERSION 0.7\nFIELDS x y z intensity\nSIZE 4 4 4 4\n"
+                 f"TYPE F F F F\nCOUNT 1 1 1 1\nWIDTH {len(xyzi)}\nHEIGHT 1\n"
+                 f"POINTS {len(xyzi)}\nDATA binary\n").encode()
+                + xyzi.tobytes())
+    for p in paths:
+        got = native.read_scan(p)
+        if not (np.array_equal(got, native.read_scan_python(p))
+                and np.array_equal(got, xyzi)):
+            raise AssertionError(f"native read_scan differs on {p}")
+    loader = native.ScanLoader(paths * 4, n_threads=4, lookahead=4)
+    try:
+        for i in (0, 3, 1, 7, 2):
+            if not np.array_equal(loader.get(i), xyzi):
+                raise AssertionError(f"ScanLoader differs at {i}")
+    finally:
+        loader.close()
+    rng = np.random.default_rng(0)
+    ts_a = np.sort(rng.uniform(0, 100, 1000))
+    ts_b = np.sort(np.concatenate([ts_a[::2] + rng.normal(0, 0.02, 500),
+                                   rng.uniform(0, 100, 200)]))
+    pairs = []
+    for use in (True, False):
+        sync = native.ApproxTimeSync(0.05, native=use)
+        for i, t in enumerate(ts_a):
+            sync.push_a(float(t), i)
+        for j, t in enumerate(ts_b):
+            sync.push_b(float(t), j)
+        pairs.append([])
+        while (p := sync.pop()) is not None:
+            pairs[-1].append(p)
+        sync.close()
+    if pairs[0] != pairs[1]:
+        raise AssertionError("native ApproxTimeSync pairs differ from the "
+                             "Python version's")
+    payload = xyzi.tobytes()[:1 << 20] * 3
+    if native.lz4_decompress(datasets.lz4_frame(payload), len(payload)) \
+            != payload:
+        raise AssertionError("native LZ4 decode differs")
+    log(f"native_runtime: {lib.name} from {native.SRC.name}; read_scan == "
+        f"the Python readers on a {len(xyzi)}-point .bin and binary PCD; "
+        f"the loader equal; {len(pairs[0])} sync pairs equal the Python "
+        f"version's of {len(ts_a)} / {len(ts_b)} stamps; LZ4 frame decoded")
+    rows = []
+    for fmt, comp in (("pointcloud2", "none"), ("pointcloud2", "bz2"),
+                      ("pointcloud2", "lz4"), ("livox", "none"),
+                      ("livox", "lz4")):
+        r = profile_ingest.measure(fmt, comp, INGEST_SCANS, INGEST_POINTS,
+                                   INGEST_CAP)
+        rows.append(r)
+        log(f"ingest {fmt} {comp}: {r['scans']} scans x {r['points']} points "
+            f"({r['bytes'] / 1e6:.1f} MB) in {r['seconds']:.3f} s: "
+            f"{r['scans_per_s']:.1f} scans/s, {r['mb_per_s']:.0f} MB/s, "
+            f"{r['x_10hz']:.1f}x the 10 Hz budget (host clock) [{card}]")
+    return rows
+
+
+def keyframe_truth(pipe, truth, stamps, offset=0.0):
+    """The true pose of each keyframe: the scan whose stamp (plus
+    ``offset``, the odometry's lag in parity mode) is the keyframe's."""
+    idx = [int(np.argmin(np.abs(stamps + offset - t)))
+           for t in pipe.kf_timestamps]
+    return truth[idx]
+
+
+def write_dataset(tmp, card):
+    """The KITTI-style directory of the dataset phases (``tools/datasets``),
+    scans made in DATA_WORKERS processes: (dir, stamps, truth)."""
+    import os
+
+    from fast_lio_sam_qn_tpu_torch.configs.presets import LIO_PRESETS
+    from fast_lio_sam_qn_tpu_torch.tools import datasets
+
+    kit = LIO_PRESETS["kitti"]
+    d = os.path.join(tmp, "kitti")
+    t0 = time.perf_counter()
+    stamps, truth = datasets.write_kitti(
+        d, datasets.simulate_scans(DATA_SCANS, DATA_RAW, kit.extrinsic_R,
+                                   kit.extrinsic_T, workers=DATA_WORKERS),
+        datasets.simulate_imu_rows(DATA_SCANS / 10.0))
+    size = sum(os.path.getsize(os.path.join(d, "scans", f))
+               for f in os.listdir(os.path.join(d, "scans")))
+    log(f"dataset: {DATA_SCANS} scans of {DATA_RAW} rays in the LiDAR frame "
+        f"of the kitti preset's extrinsic {kit.extrinsic_T}, {size / 1e9:.2f} "
+        f"GB of .bin, made in {time.perf_counter() - t0:.1f} s "
+        f"({DATA_WORKERS} processes) [{card}]")
+    return d, stamps, truth
+
+
+def cli_kitti(dev, card, errs, d, stamps, truth, tmp):
+    """``run.main(["--kitti", DIR, "--preset", "kitti", "--out", OUT])`` at
+    full width: rc 0, every export present, ATE at the keyframes < 0.5 m,
+    loop attempts >= 1 with K1-K5 launched, K1-K5 against their plain
+    versions on the first and last tick's clouds; LIO ms per scan (CUDA
+    events, span ``lio``), feed ms (span ``pgo``), scans/s of the run
+    against the 10 Hz sensor, peak memory."""
+    import os
+
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation
+
+    for cnt in launch_counters().values():
+        cnt.launches = 0
+    spans = EventSpans()
+    mem = PhaseMemory(dev)
+    report, wall, pipe = cli_run(["--kitti", d, "--preset", "kitti", "--out",
+                                  os.path.join(tmp, "out")], spans)
+    launched = launches_now()
+    gt = keyframe_truth(pipe, truth, stamps)
+    _, corrected = pipe.get_trajectories()
+    ate = evaluation.ate_rmse(corrected, gt)
+    ate_raw = evaluation.ate_rmse(corrected, gt, align=False)
+    log(f"cli_kitti: {wall:.1f} s wall for {report['scans']} scans, "
+        f"{report['scans'] / wall:.2f} scans/s against the 10 Hz sensor, "
+        f"report {brief(report)}, {len(pipe.loop_events)} loop attempts, "
+        f"ATE at the keyframes {ate!r} m ({ate_raw!r} m unaligned), kernel "
+        f"launches {launched}, {mem} [{card}]")
+    spans.report("cli_kitti (kitti width, 131,072 rays)", card, skip=1)
+    missing = missing_exports(report)
+    if report["scans"] != DATA_SCANS or missing:
+        raise AssertionError(f"cli_kitti: {report}, missing {missing}")
+    if not ate < 0.5:
+        raise AssertionError(f"cli_kitti: ATE {ate} m")
+    if not pipe.loop_events or not all(launched[k] > 0 for k in SINGLE):
+        raise AssertionError(f"cli_kitti: {len(pipe.loop_events)} attempts, "
+                             f"launches {launched}")
+    tick_kernel_parity(pipe, errs, "cli_kitti")
+    return ate
+
+
+def kitti_resume(d, card, tmp):
+    """RESUME_SCANS scans straight against half of them with --checkpoint
+    and a --resume for the rest: equal keyframe counts, poses within 1e-4 m
+    (the JAX package's tolerance); whether they are bit-identical."""
+    import os
+
+    from fast_lio_sam_qn_tpu_torch.utils import io as pio
+
+    ck = os.path.join(tmp, "state.npz")
+    args = ["--kitti", d, "--preset", "kitti"]
+    full, w_full, _ = cli_run(args + ["--n-scans", str(RESUME_SCANS),
+                                      "--out", os.path.join(tmp, "full")])
+    half, w_half, _ = cli_run(args + ["--n-scans", str(RESUME_SCANS // 2),
+                                      "--checkpoint", ck, "--no-auto-save"])
+    res, w_res, _ = cli_run(args + ["--n-scans", str(RESUME_SCANS),
+                                    "--resume", ck, "--out",
+                                    os.path.join(tmp, "resumed")])
+    a, b = (pio.load_poses_kitti(os.path.join(r["exported_to"],
+                                              "poses_kitti.txt"))
+            for r in (full, res))
+    gap = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    log(f"kitti resume: {RESUME_SCANS} scans straight ({w_full:.1f} s) vs "
+        f"{RESUME_SCANS // 2} + --checkpoint ({w_half:.1f} s, "
+        f"{os.path.getsize(ck) / 1e6:.1f} MB) + --resume ({w_res:.1f} s): "
+        f"{full['keyframes']} / {res['keyframes']} keyframes, resumed at "
+        f"{res['resumed_at']}, poses within {gap:.3e} m, bit-identical "
+        f"{bool(np.array_equal(a, b))} [{card}]")
+    if res["keyframes"] != full["keyframes"] or not gap <= 1e-4 \
+            or res["resumed_at"] != RESUME_SCANS // 2:
+        raise AssertionError(f"kitti resume: {full} vs {res}")
+
+
+def cli_parity(dev, card, errs, d, stamps, truth, tmp):
+    """The same scans in the body frame with drifted odometry, ``--stamps``,
+    ``--odom-times`` missing 5 stamps and ``--loop-batch 4``, ticks every 2
+    s (the reference's config.yaml at loop_update_hz 0.5, read as JSON, so
+    that ticks find two pending keyframes): scans N - 5, dropped_unmatched
+    5, K1b-K5b launched, and held against their plain versions on one
+    batched tick's lanes; the corrected ATE below the drifted odometry's."""
+    import os
+
+    from fast_lio_sam_qn_tpu_torch.configs.presets import LIO_PRESETS
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import LoopClosure
+    from fast_lio_sam_qn_tpu_torch.tools import datasets
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation
+    from fast_lio_sam_qn_tpu_torch.utils import io as pio
+
+    kit = LIO_PRESETS["kitti"]
+    R = np.asarray(kit.extrinsic_R, np.float64).reshape(3, 3)
+    body = os.path.join(tmp, "body")
+    os.makedirs(body)
+    for i in range(DATA_SCANS):
+        xyzi = pio.read_velodyne_bin(os.path.join(d, "scans", f"{i:06d}.bin"))
+        xyzi[:, :3] = (xyzi[:, :3].astype(np.float64) @ R.T
+                       + kit.extrinsic_T).astype(np.float32)
+        xyzi.tofile(os.path.join(body, f"{i:06d}.bin"))
+    odom = datasets.drifted_odometry(truth, seed=3, sigma=0.004)
+    keep = [i for i in range(DATA_SCANS) if i not in ODOM_MISSING]
+    files = {k: os.path.join(tmp, f"{k}.txt") for k in ("poses", "stamps",
+                                                        "odom_times")}
+    pio.save_poses_kitti(files["poses"], odom[keep])
+    np.savetxt(files["stamps"], stamps, fmt="%.9f")
+    np.savetxt(files["odom_times"], stamps[keep] + 0.012, fmt="%.9f")
+    cfg = os.path.join(tmp, "config.json")
+    with open(cfg, "w") as f:
+        json.dump(REFERENCE_CONFIG, f)
+    ticks, batch_fn = [], LoopClosure.perform_loop_closure_batch
+
+    def traced(self, store, q, c):
+        ticks.append((list(q), list(c)))
+        return batch_fn(self, store, q, c)
+
+    for cnt in launch_counters().values():
+        cnt.launches = 0
+    LoopClosure.perform_loop_closure_batch = traced
+    mem = PhaseMemory(dev)
+    try:
+        report, wall, pipe = cli_run([
+            "--scans", body, "--poses", files["poses"], "--stamps",
+            files["stamps"], "--odom-times", files["odom_times"],
+            "--sync-slop", "0.05", "--loop-batch", "4", "--preset", "kitti",
+            "--ref-config", cfg, "--no-strict-parity", "--no-auto-save"])
+    finally:
+        LoopClosure.perform_loop_closure_batch = batch_fn
+    launched = launches_now()
+    gt = keyframe_truth(pipe, truth, stamps, 0.012)
+    odom_kf, corrected = pipe.get_trajectories()
+    ate = evaluation.ate_rmse(corrected, gt, align=False)
+    ate_odom = evaluation.ate_rmse(odom_kf, gt, align=False)
+    multi = [t for t in ticks if sum(c >= 0 for c in t[1]) >= 2]
+    log(f"cli_parity: {wall:.1f} s wall, report {brief(report)}, "
+        f"{len(ticks)} batched ticks ({len(multi)} with 2+ candidate lanes), "
+        f"{len(pipe.loop_events)} loop events, "
+        f"{sum(e.accepted for e in pipe.loop_events)} accepted, "
+        f"{len(pipe.loop_idx_pairs)} committed, ATE corrected {ate!r} m vs "
+        f"drifted odometry {ate_odom!r} m, kernel launches {launched}, {mem} "
+        f"[{card}]")
+    if (report["scans"], report["dropped_unmatched"]) != (
+            DATA_SCANS - len(ODOM_MISSING), len(ODOM_MISSING)):
+        raise AssertionError(f"cli_parity: {report}")
+    if not multi or not all(launched[k] > 0 for k in BATCHED):
+        raise AssertionError(f"cli_parity: ticks {ticks}, launches "
+                             f"{launched}")
+    if not ate < ate_odom:
+        raise AssertionError(f"cli_parity: ATE {ate} vs odometry {ate_odom}")
+    lc = pipe.loop_closure
+    batched_parity(pipe.store, lc.src_cap, lc.dst_cap, errs, tick=multi[-1])
+
+
+# the reference's config/config.yaml (effective values: the port's defaults)
+# with the loop timer at 0.5 Hz
+REFERENCE_CONFIG = {
+    "basic": {"map_frame": "map", "loop_update_hz": 0.5, "vis_hz": 1.0},
+    "keyframe": {"keyframe_threshold": 1.5, "num_submap_keyframes": 10,
+                 "enable_submap_matching": False},
+    "loop": {"loop_detection_radius": 35.0,
+             "loop_detection_timediff_threshold": 30.0},
+    "quatro_nano_gicp_voxel_resolution": 0.3,
+    "save_voxel_resolution": 0.3,
+    "nano_gicp": {"thread_number": 0, "icp_score_threshold": 1.5,
+                  "correspondences_number": 15, "max_iter": 32,
+                  "transformation_epsilon": 0.01,
+                  "euclidean_fitness_epsilon": 0.01,
+                  "ransac": {"max_iter": 5,
+                             "outlier_rejection_threshold": 1.0}},
+    "quatro": {"enable": True, "optimize_matching": True,
+               "distance_threshold": 35.0, "max_correspondences": 500,
+               "fpfh_normal_radius": 0.9, "fpfh_radius": 1.5,
+               "estimating_scale": False, "noise_bound": 0.3,
+               "rotation": {"num_max_iter": 50, "gnc_factor": 1.4,
+                            "rot_cost_diff_threshold": 0.0001}},
+    "result": {"save_map_pcd": True, "save_map_bag": True,
+               "save_in_kitti_format": True, "seq_name": "sequence"},
+}
+
+
+def cli_bag(dev, card, tmp):
+    """A full-width bag of BAG_SCANS scans (PointCloud2 with a time field,
+    Imu at 200 Hz, drifted Odometry with 3 messages skipped, lz4 chunks):
+    ``--bag`` in LIO mode gives the keyframes of ``bag_convert`` followed
+    by ``--kitti`` within 1e-3 m (tests/test_rosbag.py:449-479);
+    ``--bag --odom-topic`` drops and counts the unmatched scans
+    (tests/test_rosbag.py:500-550); a Livox CustomMsg bag of the same scans
+    runs end to end."""
+    import os
+
+    from fast_lio_sam_qn_tpu_torch.configs.presets import LIO_PRESETS
+    from fast_lio_sam_qn_tpu_torch.tools import bag_convert, datasets
+    from fast_lio_sam_qn_tpu_torch.utils import evaluation
+    from fast_lio_sam_qn_tpu_torch.utils import io as pio
+
+    kit = LIO_PRESETS["kitti"]
+    t0 = time.perf_counter()
+    rec = datasets.record(BAG_SCANS, DATA_RAW, kit.extrinsic_R,
+                          kit.extrinsic_T, imu_hz=200.0, workers=DATA_WORKERS)
+    skip = (10, 11, BAG_SCANS // 2 + 3)
+    odom = datasets.drifted_odometry(rec.truth, seed=4)
+    bag = os.path.join(tmp, "pc2.bag")
+    size = datasets.write_bag(bag, datasets.bag_messages(
+        rec, odometry=odom, odom_skip=skip), "lz4")
+    livox = os.path.join(tmp, "livox.bag")
+    lsize = datasets.write_bag(livox, datasets.bag_messages(
+        rec, fmt="livox"), "lz4")
+    log(f"cli_bag: {BAG_SCANS} scans, bags of {size / 1e6:.1f} MB "
+        f"(PointCloud2 + Imu 200 Hz + Odometry, lz4) and {lsize / 1e6:.1f} MB "
+        f"(Livox CustomMsg + Imu, lz4) made in {time.perf_counter() - t0:.1f} "
+        f"s [{card}]")
+    out = {}
+    for name, args in (
+            ("bag", ["--bag", bag]),
+            ("convert+kitti", None),
+            ("bag --odom-topic", ["--bag", bag, "--odom-topic", "/Odometry"]),
+            ("livox bag", ["--bag", livox])):
+        if args is None:
+            t0 = time.perf_counter()
+            conv = bag_convert.convert(bag, os.path.join(tmp, "conv"))
+            log(f"cli_bag bag_convert: {conv} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            args = ["--kitti", os.path.join(tmp, "conv")]
+        report, wall, pipe = cli_run(args + [
+            "--preset", "kitti", "--out", os.path.join(tmp, name)])
+        poses = pio.load_poses_kitti(os.path.join(report["exported_to"],
+                                                  "poses_kitti.txt"))
+        # bag stamps are T_BASE + the recording's; bag_convert's start at
+        # the first message (the first IMU sample)
+        ate = evaluation.ate_rmse(poses, keyframe_truth(
+            pipe, rec.truth, rec.stamps, -rec.imu[0, 0]
+            if name == "convert+kitti" else datasets.T_BASE))
+        out[name] = (report, poses)
+        log(f"cli_bag {name}: {wall:.1f} s wall, {report['scans'] / wall:.2f} "
+            f"scans/s, report {brief(report)}, ATE at the keyframes "
+            f"{ate!r} m [{card}]")
+        if report["scans"] != BAG_SCANS - (len(skip) if "odom" in name
+                                           else 0) or not ate < 0.5:
+            raise AssertionError(f"cli_bag {name}: {report}, ATE {ate}")
+    (a, pa), (b, pb) = out["bag"], out["convert+kitti"]
+    gap = float(np.abs(pa - pb).max()) if pa.shape == pb.shape else \
+        float("inf")
+    log(f"cli_bag: --bag vs bag_convert + --kitti: {a['keyframes']} / "
+        f"{b['keyframes']} keyframes, poses within {gap:.3e} m")
+    if a["keyframes"] != b["keyframes"] or not gap <= 1e-3:
+        raise AssertionError("cli_bag: --bag differs from bag_convert + "
+                             "--kitti")
+    if out["bag --odom-topic"][0]["dropped_unmatched"] != len(skip):
+        raise AssertionError(f"cli_bag: {out['bag --odom-topic'][0]}")
+
+
+def dataset_phases(dev, card, errs):
+    """native_runtime, then the KITTI-style dataset and cli_kitti,
+    kitti_resume and cli_parity over it, then cli_bag; the files are
+    deleted at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="dataset_phases_")
+    try:
+        t0 = time.perf_counter()
+        native_runtime(card, tmp)
+        log(f"native_runtime: {time.perf_counter() - t0:.1f} s")
+        d, stamps, truth = write_dataset(tmp, card)
+        for name, fn in (
+                ("cli_kitti", lambda: cli_kitti(dev, card, errs, d, stamps,
+                                                truth, tmp)),
+                ("kitti_resume", lambda: kitti_resume(d, card, tmp)),
+                ("cli_parity", lambda: cli_parity(dev, card, errs, d, stamps,
+                                                  truth, tmp))):
+            t0 = time.perf_counter()
+            fn()
+            log(f"{name}: {time.perf_counter() - t0:.1f} s")
+        for sub in ("kitti", "body"):
+            shutil.rmtree(os.path.join(tmp, sub))
+        t0 = time.perf_counter()
+        cli_bag(dev, card, tmp)
+        log(f"cli_bag: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1927,6 +2415,7 @@ def main() -> int:
     lio_point(dev, card)
     lio_extrinsic(dev, card)
     cli_sim(dev, card, errs)
+    dataset_phases(dev, card, errs)
 
     knn_src = "fast_lio_sam_qn_tpu/ops/pallas_knn.py"
     fs_src = "fast_lio_sam_qn_tpu/ops/fpfh_stream.py"

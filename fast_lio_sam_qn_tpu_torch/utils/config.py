@@ -208,10 +208,16 @@ def _lookup(tree: dict, dotted: str, default: Any) -> Any:
 def _tree(path_or_dict) -> dict:
     if isinstance(path_or_dict, dict):
         return path_or_dict
-    import yaml  # only a file needs it
-
     with open(path_or_dict) as f:
-        return yaml.safe_load(f) or {}
+        text = f.read()
+    try:
+        import yaml  # only a file needs it
+    except ImportError:
+        # JSON is YAML too: a JSON file reads without PyYAML
+        import json
+
+        return json.loads(text) or {}
+    return yaml.safe_load(text) or {}
 
 
 def load_reference_yaml(path_or_dict, strict_parity: bool = True

@@ -127,6 +127,20 @@ def test_loaders_read_yaml_files(tmp_path):
         dataclasses.asdict(jconfig.load_lio_yaml(str(lio)))
 
 
+def test_json_config_reads_without_pyyaml(tmp_path, monkeypatch):
+    """A JSON file is YAML too: without PyYAML (a host may lack it) the
+    loaders read it as JSON, to the same config."""
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(REFERENCE_YAML))
+    lio = tmp_path / "lio.json"
+    lio.write_text(json.dumps(FAST_LIO_YAML))
+    monkeypatch.setitem(__import__("sys").modules, "yaml", None)
+    _assert_same_config(config.load_reference_yaml(str(path)),
+                        jconfig.load_reference_yaml(REFERENCE_YAML))
+    assert dataclasses.asdict(config.load_lio_yaml(str(lio))) == \
+        dataclasses.asdict(jconfig.load_lio_yaml(FAST_LIO_YAML))
+
+
 def test_apply_strict_parity_matches_jax():
     got, want = config.PipelineConfig(), jconfig.PipelineConfig()
     _assert_same_config(got, want)
@@ -377,6 +391,84 @@ def test_unported_flags_stop_with_their_roadmap_item(flag, capsys):
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet" in err
     assert f"queue 1 item {run._NOT_PORTED[flag]}" in err
+
+
+# every flag of the dataset modes: (argv, the mode it reaches, the parsed
+# field and value)
+PORTED_FLAGS = {
+    "--kitti": (["--kitti", "D"], "run_kitti", "kitti", "D"),
+    "--scans": (["--scans", "S", "--poses", "P"], "run_parity", "scans",
+                "S"),
+    "--poses": (["--scans", "S", "--poses", "P"], "run_parity", "poses",
+                "P"),
+    "--stamps": (["--scans", "S", "--poses", "P", "--stamps", "T"],
+                 "run_parity", "stamps", "T"),
+    "--odom-times": (["--scans", "S", "--poses", "P", "--odom-times", "O"],
+                     "run_parity", "odom_times", "O"),
+    "--sync-slop": (["--scans", "S", "--poses", "P", "--sync-slop", "0.2"],
+                    "run_parity", "sync_slop", 0.2),
+    "--world-frame": (["--scans", "S", "--poses", "P", "--world-frame"],
+                      "run_parity", "world_frame", True),
+    "--bag": (["--bag", "B"], "run_bag", "bag", "B"),
+    "--scan-topic": (["--bag", "B", "--scan-topic", "/p"], "run_bag",
+                     "scan_topic", "/p"),
+    "--imu-topic": (["--bag", "B", "--imu-topic", "/i"], "run_bag",
+                    "imu_topic", "/i"),
+    "--odom-topic": (["--bag", "B", "--odom-topic", "/o"], "run_bag",
+                     "odom_topic", "/o"),
+    "--checkpoint": (["--kitti", "D", "--checkpoint", "C"], "run_kitti",
+                     "checkpoint", "C"),
+    "--checkpoint-every": (["--kitti", "D", "--checkpoint-every", "5"],
+                           "run_kitti", "checkpoint_every", 5),
+    "--resume": (["--kitti", "D", "--resume", "R"], "run_kitti", "resume",
+                 "R"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(PORTED_FLAGS))
+def test_ported_flags_reach_their_mode(flag, monkeypatch, capsys):
+    """Each flag of the dataset modes parses to the JAX CLI's field and
+    value and reaches its mode (the mode itself stubbed), on cuda by
+    default."""
+    argv, mode, field, value = PORTED_FLAGS[flag]
+    seen = []
+
+    def fake(args):
+        seen.append((mode, args))
+        cfg = config.PipelineConfig()
+        return types.SimpleNamespace(cfg=cfg), {"mode": mode,
+                                                "checkpoint": "C"}
+
+    for name in ("run_kitti", "run_parity", "run_bag", "run_sim"):
+        monkeypatch.setattr(run, name, lambda a, n=name: (
+            fake(a) if n == mode else pytest.fail(f"{n} reached")))
+    assert run.main(argv + ["--no-auto-save"]) == 0
+    assert json.loads(capsys.readouterr().out)["mode"] == mode
+    (reached, args), = seen
+    assert reached == mode and getattr(args, field) == value
+    assert args.device == "cuda"
+    import fast_lio_sam_qn_tpu.run as jrun
+
+    monkeypatch.setattr(jrun, mode, fake)
+    monkeypatch.setattr(jrun, "_enable_compile_cache", lambda: None)
+    assert jrun.main(argv + ["--no-auto-save"]) == 0
+    assert getattr(seen[1][1], field) == value
+
+
+@pytest.mark.parametrize("argv", [["--sim"], ["--bag", "B"],
+                                  ["--scans", "S", "--poses", "P"]])
+def test_resume_needs_kitti_as_in_the_jax_cli(argv, capsys):
+    from fast_lio_sam_qn_tpu.run import main as jmain
+
+    msgs = []
+    for main in (run.main, jmain):
+        with pytest.raises(SystemExit) as exc:
+            main(argv + ["--resume", "R"])
+        assert exc.value.code == 2
+        msgs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert msgs[0].endswith(
+        "error: --resume is supported in integrated (--kitti) mode")
+    assert msgs[0].split("error:")[1] == msgs[1].split("error:")[1]
 
 
 def test_a_mode_is_required(capsys):

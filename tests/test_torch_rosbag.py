@@ -1,0 +1,324 @@
+"""The port's bag reader and decoders (``runtime/rosbag.py``), sweep times
+(``utils/sweep.py``), converters (``tools/{bag,kitti,mulran}_convert.py``)
+and ingest profile (``tools/profile_ingest.py``) held against the JAX
+package's on the same bytes: every decoded array, every message and every
+converted file equal.  The bags come from ``tools/datasets.py`` (none /
+bz2 / lz4 chunks, PointCloud2 with a time field or Livox CustomMsg, Imu,
+Odometry)."""
+import filecmp
+import os
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from fast_lio_sam_qn_tpu.runtime import rosbag as jrosbag
+from fast_lio_sam_qn_tpu.tools import bag_convert as jbag_convert
+from fast_lio_sam_qn_tpu.tools import kitti_convert as jkitti_convert
+from fast_lio_sam_qn_tpu.tools import mulran_convert as jmulran_convert
+from fast_lio_sam_qn_tpu.utils import sweep as jsweep
+from fast_lio_sam_qn_tpu_torch.runtime import rosbag
+from fast_lio_sam_qn_tpu_torch.tools import (bag_convert, datasets,
+                                             kitti_convert, mulran_convert,
+                                             profile_ingest)
+from fast_lio_sam_qn_tpu_torch.utils import sweep
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def recording():
+    return datasets.record(4, 1024, extrinsic_T=(0.81, -0.32, 0.8),
+                           imu_hz=200.0, standstill=0.1)
+
+
+def _bag(tmp_path, rec, name, **kw):
+    comp = kw.pop("compression", "lz4")
+    path = str(tmp_path / name)
+    datasets.write_bag(path, datasets.bag_messages(rec, **kw), comp,
+                       chunk_bytes=1 << 16)
+    return path
+
+
+def _same_arrays(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+
+
+# ---------------------------------------------------------------------------
+# decoders on the same bytes
+# ---------------------------------------------------------------------------
+
+def _pc2(stamp, cols, names, dtypes, height=1, row_pad=0):
+    """A PointCloud2 of per-point columns with the given PointField
+    dtypes (7 float32, 6 uint32, 8 float64), optionally organized with a
+    padded row_step."""
+    n = len(cols[0])
+    np_t = {6: "<u4", 7: "<f4", 8: "<f8"}
+    rec = np.zeros(n, dtype=[(nm, np_t[d]) for nm, d in zip(names, dtypes)])
+    for nm, c in zip(names, cols):
+        rec[nm] = c
+    step = rec.dtype.itemsize
+    width = n // height
+    rows = rec.tobytes()
+    if row_pad:
+        rows = b"".join(rows[r * width * step:(r + 1) * width * step]
+                        + b"\xee" * row_pad for r in range(height))
+    buf = datasets._header(stamp, "lidar") + struct.pack(
+        "<III", height, width, len(names))
+    off = 0
+    for nm, d in zip(names, dtypes):
+        buf += struct.pack("<I", len(nm)) + nm.encode() + struct.pack(
+            "<IBI", off, d, 1)
+        off += rec.dtype[nm].itemsize
+    buf += struct.pack("<BII", 0, step, width * step + row_pad)
+    return buf + struct.pack("<I", len(rows)) + rows + b"\x01"
+
+
+def _clouds():
+    rng = np.random.default_rng(3)
+    xyz = [rng.normal(0, 9, 120).astype(np.float32) for _ in range(3)]
+    inten = rng.uniform(0, 200, 120).astype(np.float32)
+    t = np.sort(rng.uniform(0, 0.1, 120))
+    return {
+        "velodyne-time-s": _pc2(5.5, [*xyz, inten, t], ["x", "y", "z",
+                                "intensity", "time"], [7, 7, 7, 7, 7]),
+        "ouster-t-ns": _pc2(5.5, [*xyz, (t * 1e9).astype(np.uint32)],
+                            ["x", "y", "z", "t"], [7, 7, 7, 6]),
+        "hesai-timestamp-f64": _pc2(5.5, [*xyz, 1e9 + t], ["x", "y", "z",
+                                    "timestamp"], [7, 7, 7, 8]),
+        "unknown-ms": _pc2(5.5, [*xyz, t * 1e3], ["x", "y", "z",
+                           "point_time"], [7, 7, 7, 6]),
+        "no-time": _pc2(5.5, [*xyz, inten], ["x", "y", "z", "intensity"],
+                        [7, 7, 7, 7]),
+        "organized-padded": _pc2(5.5, [*xyz, inten, t], ["x", "y", "z",
+                                 "intensity", "time"], [7, 7, 7, 7, 7],
+                                 height=4, row_pad=12),
+    }
+
+
+@pytest.mark.parametrize("unit", [-1, 0, 1, 2, 3])
+@pytest.mark.parametrize("cloud", sorted(_clouds()))
+def test_pointcloud2_decodes_alike(cloud, unit):
+    raw = _clouds()[cloud]
+    got = rosbag.decode_pointcloud2(raw, timestamp_unit=unit)
+    _same_arrays(got, jrosbag.decode_pointcloud2(raw, timestamp_unit=unit))
+    assert got[1].shape == (120, 4) and got[2].shape == (120,)
+    if cloud == "velodyne-time-s" and unit in (-1, 0):
+        assert 0.09 < got[2].max() < 0.1
+
+
+def test_message_decoders_alike(recording):
+    """Livox CustomMsg (reflectivity, ns offsets), Imu, Odometry and the
+    fixtures' timed PointCloud2 decode alike, and as encoded."""
+    s = recording.scans[1]
+    xyzi = np.column_stack([s.points, s.intensities])
+    raw = rosbag.encode_livox_custommsg(7.25, xyzi, s.rel_times)
+    assert raw == jrosbag.encode_livox_custommsg(7.25, xyzi, s.rel_times)
+    got = rosbag.decode_livox_custommsg(raw)
+    _same_arrays(got, jrosbag.decode_livox_custommsg(raw))
+    np.testing.assert_array_equal(got[1], xyzi)
+    np.testing.assert_allclose(got[2], s.rel_times - s.rel_times.min(),
+                               atol=2e-9)
+    raw = datasets.encode_pointcloud2_timed(7.25, xyzi, s.rel_times)
+    got = rosbag.decode_pointcloud2(raw)
+    _same_arrays(got, jrosbag.decode_pointcloud2(raw))
+    np.testing.assert_array_equal(got[1], xyzi)
+    raw = datasets.encode_imu(3.25, [0.1, -0.2, 0.3], [0.4, 0.5, 9.6])
+    got = rosbag.decode_imu(raw)
+    _same_arrays(got, jrosbag.decode_imu(raw))
+    np.testing.assert_array_equal(got[2], [0.4, 0.5, 9.6])
+    raw = datasets.encode_odometry(4.5, recording.scans[3].truth)
+    got = rosbag.decode_odometry(raw)
+    _same_arrays(got, jrosbag.decode_odometry(raw))
+    np.testing.assert_allclose(got[1], recording.scans[3].truth, atol=1e-12)
+    with pytest.raises(ValueError, match="scan-relative"):
+        rosbag.encode_livox_custommsg(1.0, xyzi[:3], np.array([0, 1, 5.0]))
+
+
+def test_writer_names_resolve_here():
+    """The JAX module's names all resolve in the port's reader module; the
+    writer's are the ones of utils/rosbag.py."""
+    from fast_lio_sam_qn_tpu_torch.utils import rosbag as writer
+
+    public = {n for n in dir(jrosbag) if not n.startswith("_")
+              and callable(getattr(jrosbag, n))}
+    assert public <= set(dir(rosbag)), public - set(dir(rosbag))
+    assert rosbag.BagWriter is writer.BagWriter
+    assert rosbag.encode_pose_stamped is writer.encode_pose_stamped
+
+
+@pytest.mark.parametrize("compression", ["none", "bz2", "lz4"])
+@pytest.mark.parametrize("fmt", ["pointcloud2", "livox"])
+def test_bag_reader_reads_alike(tmp_path, recording, compression, fmt):
+    """Every message of a multi-chunk bag equal between the two readers,
+    in file order; the scans decode to the recording's."""
+    path = _bag(tmp_path, recording, "b.bag", fmt=fmt,
+                odometry=recording.truth, compression=compression)
+    got = list(rosbag.BagReader(path).messages())
+    assert got == list(jrosbag.BagReader(path).messages())
+    scans = [m for m in got if m[0] in ("/points", "/livox/lidar")]
+    assert len(scans) == 4 and sum(m[0] == "/imu" for m in got) > 80
+    dec = rosbag.scan_decoders()[scans[2][1]]
+    np.testing.assert_array_equal(dec(scans[2][3])[1][:, :3],
+                                  recording.scans[2].points)
+    assert rosbag.BagReader(path).topics() == \
+        jrosbag.BagReader(path).topics()
+    only = list(rosbag.BagReader(path).messages(topics={"/Odometry"}))
+    assert len(only) == 4
+
+
+def test_indexed_result_bag_topics(tmp_path):
+    """The writer's indexed bag: topics() from the index section."""
+    path = str(tmp_path / "r.bag")
+    w = rosbag.BagWriter(path)
+    for i in range(3):
+        w.write("/keyframe_pcd", "sensor_msgs/PointCloud2", 1.0 + i,
+                rosbag.encode_pointcloud2(1.0 + i, np.ones((5, 4))))
+    w.close()
+    assert rosbag.BagReader(path).topics() == \
+        jrosbag.BagReader(path).topics() == {
+            "/keyframe_pcd": "sensor_msgs/PointCloud2"}
+
+
+# ---------------------------------------------------------------------------
+# converters, file for file
+# ---------------------------------------------------------------------------
+
+def _tree_equal(a, b):
+    names = sorted(os.path.relpath(os.path.join(d, f), a)
+                   for d, _, fs in os.walk(a) for f in fs)
+    assert names == sorted(os.path.relpath(os.path.join(d, f), b)
+                           for d, _, fs in os.walk(b) for f in fs)
+    for n in names:
+        assert filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                           shallow=False), n
+    return names
+
+
+@pytest.mark.parametrize("case", ["pointcloud2", "livox", "no-time-field",
+                                  "odometry"])
+def test_bag_convert_file_for_file(tmp_path, recording, case):
+    kw = {"livox": dict(fmt="livox"),
+          "no-time-field": dict(time_field=False),
+          "odometry": dict(odometry=recording.truth)}.get(case, {})
+    path = _bag(tmp_path, recording, "b.bag", compression="bz2", **kw)
+    topic = "/Odometry" if case == "odometry" else None
+    rep = bag_convert.convert(path, str(tmp_path / "port"), odom_topic=topic)
+    assert rep == jbag_convert.convert(path, str(tmp_path / "jax"),
+                                       odom_topic=topic)
+    names = _tree_equal(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert rep["scans"] == 4
+    assert ("rel_times/000003.npy" in names) == (case != "no-time-field")
+    assert ("odom_poses.txt" in names) == (case == "odometry")
+
+
+def test_bag_convert_lists_topics(tmp_path, recording, capsys):
+    path = _bag(tmp_path, recording, "b.bag", odometry=recording.truth)
+    assert bag_convert.main([path, "--list-topics"]) == 0
+    got = capsys.readouterr().out
+    assert jbag_convert.main([path, "--list-topics"]) == 0
+    assert got == capsys.readouterr().out
+    assert "/Odometry  [nav_msgs/Odometry]" in got
+
+
+def _kitti_drive(root, n_scans=5, imu_hz=10):
+    """tests/test_kitti_convert.py's drive (a minute crossing included)."""
+    os.makedirs(root / "velodyne_points" / "data")
+    os.makedirs(root / "oxts" / "data")
+    rng = np.random.default_rng(0)
+    stamp = "2011-09-26 {}:{:012.9f}\n"
+    with open(root / "velodyne_points" / "timestamps.txt", "w") as f:
+        for i in range(n_scans):
+            s = 59.8 + i * 0.1
+            f.write(stamp.format("13:02" if s < 60 else "13:03", s % 60))
+    for i in range(n_scans):
+        rng.normal(0, 10, (100, 4)).astype(np.float32).tofile(
+            str(root / "velodyne_points" / "data" / f"{i:010d}.bin"))
+    n_imu = n_scans * imu_hz // 10 + 2
+    with open(root / "oxts" / "timestamps.txt", "w") as f:
+        for i in range(n_imu):
+            s = 59.75 + i / imu_hz
+            f.write(stamp.format("13:02" if s < 60 else "13:03", s % 60))
+    for i in range(n_imu):
+        row = rng.normal(0, 1, 30)
+        np.savetxt(str(root / "oxts" / "data" / f"{i:010d}.txt"), row[None])
+    return root
+
+
+def _mulran_seq(root, n_scans=4, imu_hz=100):
+    """tests/test_mulran_convert.py's sequence, digit counts of the ns
+    stamps differing across the file names."""
+    os.makedirs(root / "sensor_data" / "Ouster")
+    rng = np.random.default_rng(0)
+    t0 = 999_999_999_800_000_000
+    for i in range(n_scans):
+        stamp = t0 + int((i + 1) * 0.1e9)
+        rng.normal(0, 10, (200, 4)).astype(np.float32).tofile(
+            str(root / "sensor_data" / "Ouster" / f"{stamp}.bin"))
+    rows = [[t0 + int(i * 1e9 / imu_hz), *rng.normal(0, 1, 16)]
+            for i in range(n_scans * imu_hz // 10 + 5)]
+    np.savetxt(str(root / "sensor_data" / "xsens_imu.csv"), np.asarray(rows),
+               delimiter=",", fmt="%.6f")
+    gt = [[t0 + int((i + 1) * 0.1e9), *np.eye(4)[:3].ravel()]
+          for i in range(n_scans)]
+    np.savetxt(str(root / "global_pose.csv"), np.asarray(gt), delimiter=",",
+               fmt="%.6f")
+    return root
+
+
+@pytest.mark.parametrize("tool", ["kitti", "mulran"])
+@pytest.mark.parametrize("link", [False, True])
+def test_dataset_converters_file_for_file(tmp_path, tool, link):
+    make, port, jax = {
+        "kitti": (_kitti_drive, kitti_convert, jkitti_convert),
+        "mulran": (_mulran_seq, mulran_convert, jmulran_convert)}[tool]
+    src = make(tmp_path / "src")
+    rep = port.convert(str(src), str(tmp_path / "port"), link=link)
+    assert rep == jax.convert(str(src), str(tmp_path / "jax"), link=link)
+    names = _tree_equal(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert "imu.txt" in names and "scans/000003.bin" in names
+    assert os.path.islink(tmp_path / "port" / "scans" / "000000.bin") == link
+
+
+# ---------------------------------------------------------------------------
+# sweep times, ingest
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lidar_type,scan_line", [
+    ("velodyne", 64), ("velodyne", 16), ("ouster", 128), ("livox", 6)])
+def test_synthesize_rel_times_bit_equal(recording, lidar_type, scan_line):
+    pts = recording.scans[0].points
+    for duration in (0.1, 0.0999, 0.0):
+        got = sweep.synthesize_rel_times(pts, duration, lidar_type,
+                                         scan_line)
+        want = jsweep.synthesize_rel_times(pts, duration, lidar_type,
+                                           scan_line)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    assert len(sweep.synthesize_rel_times(pts[:0], 0.1, lidar_type)) == 0
+
+
+def test_load_rel_times_alike(tmp_path, recording):
+    datasets.write_kitti(str(tmp_path), recording.scans[:2], recording.imu)
+    n = len(recording.scans[1].points)
+    for k in (n, n - 7, n + 9):
+        np.testing.assert_array_equal(
+            sweep.load_rel_times(str(tmp_path), 1, k),
+            jsweep.load_rel_times(str(tmp_path), 1, k))
+    assert sweep.load_rel_times(str(tmp_path), 5, n) is None
+
+
+@pytest.mark.parametrize("compression", ["none", "bz2", "lz4"])
+@pytest.mark.parametrize("fmt", ["pointcloud2", "livox"])
+def test_ingest_sustains_realtime(fmt, compression):
+    """The --bag host path keeps well above the 10 Hz sensor rate (the JAX
+    package's loose 3x band, 30 scans/s, here at 8,192 points)."""
+    r = profile_ingest.measure(fmt, compression, 30, 8192, 4096)
+    assert r["scans"] == 30 and r["scans_per_s"] > 30.0, r
