@@ -1,7 +1,8 @@
-"""Drive the PyTorch port's loop-closure attempt, its pose-graph pipeline,
-its per-scan LIO (both map backends, the extrinsic co-estimated) and its
-CLI (``--sim`` and the dataset modes ``--kitti``, ``--scans/--poses``,
-``--bag``, checkpoint / resume) on one CUDA card.
+"""Drive the PyTorch port's loop-closure attempt (both FPFH backends), its
+pose-graph pipeline, its per-scan LIO (both map backends, the extrinsic
+co-estimated), its CLI (``--sim`` and the dataset modes ``--kitti``,
+``--scans/--poses``, ``--bag``, checkpoint / resume) and the 1,600-scan
+long run on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -17,8 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    then holds K1, K1b, K2 and K2b against their plain versions on edge cases
    of small-integer clouds, where every d2 is exact: ties planted across
    tile, thread and split-slice edges, masks with holes, an all-masked lane,
-   sizes off every tile, F in {3, 33, 64}, k in {1, 15, 32}; outputs must be
-   equal, K2 must equal K1 and every lane its single-cloud kernel;
+   sizes off every tile, F in {3, 33, 64}, k in {1, 15, 32, 48, 64} (K2 to
+   32); outputs must be equal, K2 must equal K1 and every lane its
+   single-cloud kernel;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, on the benchmark's voxelized clouds at the
    benchmark's capacities and at the pipeline's; K2 must also equal K1 bit
@@ -67,39 +69,57 @@ Phases, in order; any failure raises and the script exits non-zero:
    candidates, the pose-graph solve at full capacity and the pipeline's
    feeds, with CUDA events (median of 10 calls) or the host clock where a
    host read ends the call;
-9. lio_golden: the 240-scan sim golden through the port, ``run.
+9. knn_fpfh: the kNN FPFH backend.  K1 at k = 48 and 64 (F = 3) on the
+   self-search of the bench clouds at the bench's and the pipeline's
+   paddings, and K1b at k = 15, 48, 64 on 4 jittered lanes, equal to
+   their plain versions bit for bit (each lane to K1); the four loop
+   pairs of tests/test_quatro.py (16,384 rays voxelized into 8,192)
+   through ``fpfh.fpfh``, Quatro and GICP at that file's tolerances;
+   ``LoopClosure`` with ``fpfh_backend="knn"`` at the pipeline's caps in
+   both matching modes, single attempts then a 4-lane batched
+   registration, counters reset just before and read just after each
+   (K1 at k = 48 and 15, then K1b at k = 48 and 15, must launch), each
+   lane within 1 mm / 1e-3 rad of the single attempt with its decision;
+   the bench gate's error is printed, not gated; K1 / K1b at k = 15 and
+   48 timed against their plain versions and ``cdist`` + ``topk``, and K1
+   at k = 64, F = 33 on the kNN descriptors;
+10. grid_cov: ``gicp.plane_covariances(backend="grid")`` of a loop pair's
+   clouds on the card against the CPU (the same neighbours, equal valid
+   masks, covariances within 1e-5 but where the normal is ill-defined),
+   then ``gicp.align(cov_backend="grid")`` within 2 cm / 0.15 rad;
+11. lio_golden: the 240-scan sim golden through the port, ``run.
    sim_lio_stream`` (the "sim" preset) replayed into ``FastLioSamQnPipeline``
    with the golden's capacities: 34 keyframes, 4-8 committed pairs, 12 loop
    events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); LIO ms per
    scan and its stage spans (CUDA events), feed ms, peak memory;
-10. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
+12. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
    0.5 m) on a straight drive, 10 warm and 20 timed scans: every scan
    after the first matches planes, the final position error within 2x the
    CPU run's (``KITTI_CPU_ERR``); ms per scan and stage spans, host syncs
    and kernels per scan, peak memory;
-11. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
+13. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
    poses within 1e-4 m / 1e-4 rad; each scan from the CPU's state gives
    the CPU's match count;
-12. lio_repeat: one scan at the sim width twice from one state, the map,
+14. lio_repeat: one scan at the sim width twice from one state, the map,
    nav state and P bit-identical; host syncs and kernels per scan;
-13. lio_point: the point-map backend at the sim width: 5 scans on the card
-   and on the CPU as in 11 (free-running only while the two maps hold the
+15. lio_point: the point-map backend at the sim width: 5 scans on the card
+   and on the CPU as in 13 (free-running only while the two maps hold the
    same voxels), a bit-identical repeat, and a 60-scan stream whose
    largest position error stays within 1.5x the JAX package's
    (``POINT_JAX_ERR``); ms per scan, stage spans, syncs, kernels, memory;
-14. lio_extrinsic: the reference's extrinsic convergence test
+16. lio_extrinsic: the reference's extrinsic convergence test
    (tests/test_extrinsic.py:108-212) on the card with its tolerances, and
    the same timings;
-15. cli_sim: ``run.main`` in-process as a user starts it (``--sim
+17. cli_sim: ``run.main`` in-process as a user starts it (``--sim
    --trajectory corridor --n-scans 40 --out DIR``: rc 0, >= 5 keyframes,
    ATE < 1 m, the exports in DIR), then 170 scans of the loop, whose loop
    attempts launch K1-K5; every kernel against its plain version, as in
    3, on the clouds of that run's first and last tick at its capacities;
-16. native_runtime: the native host runtime (``runtime/runtime.cpp``)
+18. native_runtime: the native host runtime (``runtime/runtime.cpp``)
    built into build/runtime/ and in use; its scan decoders, loader, sync
    pairs and LZ4 frames against the Python versions; bag ingest rates at
    65,536-point scans (PointCloud2 / Livox, none / bz2 / lz4 chunks);
-17. cli_kitti: a KITTI-style directory (``tools/datasets.py``: 360 scans of
+19. cli_kitti: a KITTI-style directory (``tools/datasets.py``: 360 scans of
    131,072 rays in the LiDAR frame of the kitti preset's extrinsic, 100 Hz
    IMU from a standstill, the golden's room, a 7 m loop every 30 s) through
    ``run.main(["--kitti", DIR, "--preset", "kitti", "--out", OUT])``: the
@@ -107,14 +127,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    against their plain versions on its first and last tick's clouds; LIO
    and feed ms, scans/s, memory; then 60 scans straight against 30 with
    ``--checkpoint`` and 30 after ``--resume`` (equal keyframes, 1e-4 m);
-18. cli_parity: the same scans in the body frame with drifted odometry,
+20. cli_parity: the same scans in the body frame with drifted odometry,
    ``--stamps``, ``--odom-times`` missing 5 stamps and ``--loop-batch 4``:
    5 dropped, K1b-K5b launched and held against their plain versions on a
    batched tick's lanes, the corrected ATE below the odometry's;
-19. cli_bag: a 60-scan full-width bag (PointCloud2 with a time field, Imu
+21. cli_bag: a 60-scan full-width bag (PointCloud2 with a time field, Imu
    at 200 Hz, lz4 chunks): ``--bag`` equal to ``bag_convert`` + ``--kitti``
    within 1e-3 m, ``--odom-topic`` drop accounting, a Livox bag end to end;
-20. prints the kernel table as one JSON line (time, launches on the main
+22. longrun: tools/longrun.py's 1,600-scan course (a 26 m radius loop at
+   4 m/s, 3.9 laps, 10 Hz, 2,048-point scans) through ``sim_lio_stream``
+   and the pipeline on the card, every pin of
+   tests/test_golden_longrun.py held (400 keyframes, 64 attempts, 39-59
+   commits, ATE 0.1274 m +- 30 %, odometry ATE < 0.05 m, the keyframe
+   store 128 -> >= 512, the loop factors 8 -> >= 32); ms per scan, LIO
+   and feed spans, peak memory;
+23. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
    result line.  The LIO launches none of K1-K5 (its reference has no
    Pallas kernel).  K3, K4 and K5 skip what the radius prune rules out, so
@@ -267,10 +294,10 @@ def same(name, got, want):
 
 
 def knn_edge_cases(dev):
-    """K1/K1b (F 3, 33, 64; k 1, 15, 32) and K2/K2b (F 3) on edge_clouds
-    against their plain versions: d2, indices and flags equal; every lane
-    equal to the single-cloud kernel; K2 equal to K1 on Morton-sorted
-    lanes.  Returns the number of cases."""
+    """K1/K1b (F 3, 33, 64; k 1, 15, 32, 48, 64) and K2/K2b (F 3; k 1, 15,
+    32) on edge_clouds against their plain versions: d2, indices and flags
+    equal; every lane equal to the single-cloud kernel; K2 equal to K1 on
+    Morton-sorted lanes.  Returns the number of cases."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
@@ -284,7 +311,7 @@ def knn_edge_cases(dev):
             lanes = [tuple(a[i] for a in args) for i in range(len(q))]
             splits = (knn_cuda.split_count(len(q), m, n, 1),
                       knn_cuda.split_count(1, m, n, 1))
-            for k in (1, 15, 32):
+            for k in (1, 15, 32) + BIG_K:
                 tag = f"F={f} k={k} {m}x{n}"
                 got = knn_cuda.knn_batched(*args, k)
                 same(f"K1b {tag}", got, knn_cuda.knn_batched_plain(*args, k))
@@ -292,7 +319,7 @@ def knn_edge_cases(dev):
                     same(f"K1 {tag} lane {i}", tuple(g[i] for g in got),
                          knn_cuda.knn(*one, k))
                 cases += 1
-                if f != 3:
+                if f != 3 or k > knn_cuda.BAND_MAX_K:
                     continue
                 so = torch.stack([knn_cuda.morton_order(p, mk)
                                   for p, mk in zip(args[0], args[1])])
@@ -314,7 +341,7 @@ def knn_edge_cases(dev):
             log(f"kNN edge cases F={f} {m}x{n}: {n_edges} planted ties, "
                 f"splits {splits[0]} batched / {splits[1]} single; K1, K1b"
                 f"{', K2, K2b' if f == 3 else ''} equal their plain "
-                f"versions at k = 1, 15, 32")
+                f"versions at k = 1, 15, 32, 48, 64 (K2 to 32)")
     torch.cuda.synchronize()
     return cases
 
@@ -840,10 +867,29 @@ def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES, tick=None):
 # the main path
 # ---------------------------------------------------------------------------
 
-def gate(reg, drift, label):
+def gate_error(T, drift):
+    """(m, rad) error of a registration T against the bench pair's truth."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.ops import se3
+
+    err = se3.se3_log(T.double().cpu() @ torch.tensor(drift))
+    return float(torch.linalg.norm(err[3:])), float(torch.linalg.norm(
+        err[:3]))
+
+
+def pose_gap(a, b):
+    """(m, rad) between two (4, 4) poses."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import se3
+
+    d = se3.se3_log(torch.linalg.inv(a.double().cpu()) @ b.double().cpu())
+    return float(d[3:].norm()), float(d[:3].norm())
+
+
+def gate(reg, drift, label):
+    import torch
 
     T = reg.pose_between
     if T.shape != (4, 4) or not bool(torch.isfinite(T).all()):
@@ -852,9 +898,7 @@ def gate(reg, drift, label):
         raise AssertionError(f"{label}: closest_idx {int(reg.closest_idx)}")
     if not bool(reg.is_converged):
         raise AssertionError(f"{label}: did not converge")
-    err = se3.se3_log(T.double().cpu() @ torch.tensor(drift))
-    t_err = float(torch.linalg.norm(err[3:]))
-    r_err = float(torch.linalg.norm(err[:3]))
+    t_err, r_err = gate_error(T, drift)
     log(f"{label}: closest 0, converged, valid={bool(reg.is_valid)}, "
         f"fitness {float(reg.score):.4f}, error vs ground truth "
         f"{t_err * 100:.2f} cm / {r_err:.5f} rad")
@@ -905,8 +949,25 @@ def launch_counters():
             "agg_b": fs.fpfh_agg_batched}
 
 
+# K1 / K1b launches by k, read from the wrappers' ``launches_k``
+BY_K = {"knn_k15": ("knn", 15), "knn_k48": ("knn", 48),
+        "knn_b_k15": ("knn_b", 15), "knn_b_k48": ("knn_b", 48)}
+
+
+def reset_launches():
+    """Every launch counter to 0, the counts by k cleared."""
+    for cnt in launch_counters().values():
+        cnt.launches = 0
+        if hasattr(cnt, "launches_k"):
+            cnt.launches_k.clear()
+
+
 def launches_now():
-    return {k: c.launches for k, c in launch_counters().items()}
+    counters = launch_counters()
+    out = {k: c.launches for k, c in counters.items()}
+    out.update({key: counters[base].launches_k.get(k, 0)
+                for key, (base, k) in BY_K.items()})
+    return out
 
 
 def pipeline_config():
@@ -1024,7 +1085,7 @@ def lane_vs_single(pipe, tick):
     the same store; the batched tick and a solve repeat bit for bit."""
     import torch
 
-    from fast_lio_sam_qn_tpu_torch.ops import pgo, se3
+    from fast_lio_sam_qn_tpu_torch.ops import pgo
 
     lc, store = pipe.loop_closure, pipe.store
     q, c, _ = tick
@@ -1041,10 +1102,8 @@ def lane_vs_single(pipe, tick):
         for f in ("closest_idx", "is_converged", "is_valid"):
             if not torch.equal(getattr(one, f), getattr(reg, f)[b]):
                 raise AssertionError(f"lane {b} ({qi} -> {ci}): {f} differs")
-        err = se3.se3_log(torch.linalg.inv(one.pose_between.double())
-                          @ reg.pose_between[b].double())
-        worst_t = max(worst_t, float(torch.linalg.norm(err[3:])))
-        worst_r = max(worst_r, float(torch.linalg.norm(err[:3])))
+        t, r = pose_gap(one.pose_between, reg.pose_between[b])
+        worst_t, worst_r = max(worst_t, t), max(worst_r, r)
     log(f"lane vs single on tick {q} -> {c}: same decisions, largest pose "
         f"difference {worst_t:.3e} m / {worst_r:.3e} rad; the batched "
         f"tick repeats bit for bit")
@@ -1095,16 +1154,17 @@ def kernel_ms(timing):
     return timing[0] if timing[2] is None else timing[2]
 
 
-def time_pairs(timed, card):
+def time_pairs(timed, card, plain_reps=10):
     """kernel and plain version in turns (plain, kernel, kernel, plain);
     the better of each pair of medians (CUDA events around the wrapper's
-    call), then the kernels' own device time (``device_ms``)."""
+    call; ``plain_reps`` calls a median for the plain version), then the
+    kernels' own device time (``device_ms``)."""
     ms = {}
     for name, (kern, plain) in timed.items():
-        a = cuda_ms(plain)
+        a = cuda_ms(plain, plain_reps)
         b = cuda_ms(kern)
         c = cuda_ms(kern)
-        d = cuda_ms(plain)
+        d = cuda_ms(plain, plain_reps)
         dev = device_ms(kern)
         ms[name] = (min(b, c), min(a, d), dev)
         log(f"time {name}: kernel {b:.4f} / {c:.4f} ms, plain {a:.4f} / "
@@ -1390,8 +1450,7 @@ def lio_golden(dev, card):
     if not bool(torch.isfinite(poses).all()):
         raise AssertionError("lio_golden: a non-finite LIO pose")
 
-    for cnt in launch_counters().values():
-        cnt.launches = 0
+    reset_launches()
     mem = PhaseMemory(dev)
     pipe = FastLioSamQnPipeline(cfg, device=dev)
     gt, feed_ms = [], []
@@ -1747,8 +1806,7 @@ def cli_sim(dev, card, errs):
                 not report["ate_rmse_m"] < 1.0:
             raise AssertionError(f"cli_sim corridor: missing {missing}, "
                                  f"{report}")
-        for cnt in launch_counters().values():
-            cnt.launches = 0
+        reset_launches()
         report, wall, pipe = cli_run(["--sim", "--n-scans", "170",
                                       "--no-auto-save"])
         launched = launches_now()
@@ -1920,8 +1978,7 @@ def cli_kitti(dev, card, errs, d, stamps, truth, tmp):
 
     from fast_lio_sam_qn_tpu_torch.utils import evaluation
 
-    for cnt in launch_counters().values():
-        cnt.launches = 0
+    reset_launches()
     spans = EventSpans()
     mem = PhaseMemory(dev)
     report, wall, pipe = cli_run(["--kitti", d, "--preset", "kitti", "--out",
@@ -2021,8 +2078,7 @@ def cli_parity(dev, card, errs, d, stamps, truth, tmp):
         ticks.append((list(q), list(c)))
         return batch_fn(self, store, q, c)
 
-    for cnt in launch_counters().values():
-        cnt.launches = 0
+    reset_launches()
     LoopClosure.perform_loop_closure_batch = traced
     mem = PhaseMemory(dev)
     try:
@@ -2188,6 +2244,313 @@ def dataset_phases(dev, card, errs):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the kNN FPFH backend, the grid covariances, the long run
+# ---------------------------------------------------------------------------
+
+# K1 at k > 32 (the kNN FPFH's shared search, k = max(k_feat, k_normal) by
+# default 48, and the largest the kernel takes)
+BIG_K = (48, 64)
+KNN_LANES = 4       # the pipeline's loop_batch
+LONGRUN_SCANS = 1600
+
+
+def knn_topk_library(q, qm, db, dbm, k):
+    """The library yardstick of a k > 1 kNN kernel: torch.cdist, the
+    masked db rows set to +inf, then torch.topk (timed, never used by the
+    port; fp32, TF32 off)."""
+    import torch
+
+    _strict_fp32()
+    d = torch.cdist(q, db)
+    d.masked_fill_(~dbm.unsqueeze(-2), torch.inf)
+    v, i = torch.topk(d, k, dim=-1, largest=False)
+    return (torch.where(qm[..., None], v * v, torch.inf),
+            torch.where(qm[..., None], i, -1))
+
+
+def k1_pair(args, k, batched):
+    """(kernel, plain version) of K1 (``batched``: K1b) at k on args."""
+    from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
+
+    if batched:
+        return (lambda: knn_cuda.knn_batched(*args, k),
+                lambda: knn_cuda.knn_batched_plain(*args, k))
+    return (lambda: knn_cuda.knn(*args, k),
+            lambda: knn.brute_knn(*args, k))
+
+
+def knn_backend_config(optimized):
+    import dataclasses
+
+    from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+
+    cfg = bp.bench_config(optimized)
+    cfg.quatro = dataclasses.replace(cfg.quatro, fpfh_backend="knn")
+    return cfg
+
+
+def knn_fpfh(dev, card, store, drift, errs):
+    """The kNN FPFH backend on the card.
+
+    1. K1 at k = 48 and 64, F = 3, on the self-search of the bench pair's
+       voxelized clouds at the bench's and the pipeline's paddings, equal
+       to its plain version (d2 bits, indices, flags); K1b at k = 15, 48,
+       64 on KNN_LANES jittered lanes of the pipeline-padded target, equal
+       to its plain version and each lane to K1.
+    2. tests/test_quatro.py's four loop pairs through ``fpfh.fpfh``,
+       Quatro and GICP on the card, at that file's tolerances.
+    3. ``LoopClosure`` with ``fpfh_backend="knn"`` on the bench store at
+       the pipeline's caps, both matching modes, single attempts with
+       every launch counter reset just before and read just after (K1 at
+       k = 48 and 15 must launch, K3-K5 must not), then a batched
+       registration of KNN_LANES lanes (3 candidates and a pad lane;
+       K1b at k = 48 and 15 must launch, no single-cloud kernel): each
+       lane within 1 mm / 1e-3 rad of the single attempt with its
+       decision.  The bench gate's error is printed, not gated (the
+       stream backend is the gated one).
+    Returns (single-attempt launches, batched launches, timing inputs)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import (
+        LoopClosure, _single_frame)
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh, knn, knn_cuda
+    from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+    from fast_lio_sam_qn_tpu_torch.tools import loop_pairs as lp
+
+    t0 = time.perf_counter()
+    clouds = {}
+    for caps in ((bp.SRC_CAP, bp.DST_CAP), (bp.PIPE_SRC_CAP,
+                                            bp.PIPE_DST_CAP)):
+        for tag, idx, cap in (("src", 1, caps[0]), ("dst", 0, caps[1])):
+            p, m = _single_frame(store, idx, cap, 0.3)
+            for k in BIG_K:
+                same(f"K1 k={k} F=3 {tag}@{cap}", knn_cuda.knn(p, m, p, m, k),
+                     knn.brute_knn(p, m, p, m, k))
+            clouds[(tag, cap)] = (p, m)
+            log(f"K1 k={'/'.join(map(str, BIG_K))} F=3 on the {tag} cloud "
+                f"({int(m.sum())} of {cap} rows valid): equal to the plain "
+                f"version (d2 bits, indices, flags)")
+    P, M = jittered_lanes(*clouds[("dst", bp.PIPE_DST_CAP)], KNN_LANES, 5)
+    for k in (15,) + BIG_K:
+        got = knn_cuda.knn_batched(P, M, P, M, k)
+        same(f"K1b k={k} B={KNN_LANES}", got,
+             knn_cuda.knn_batched_plain(P, M, P, M, k))
+        same_lanes(f"K1b k={k} B={KNN_LANES}", got,
+                   lambda i: knn_cuda.knn(P[i], M[i], P[i], M[i], k))
+    log(f"K1b k=15/48/64 F=3 B={KNN_LANES} at {bp.PIPE_DST_CAP} rows: equal "
+        f"to the plain version, each lane to K1 ({time.perf_counter() - t0:.1f}"
+        f" s)")
+
+    for name, (drift_xi, seed, _, fine) in lp.PAIRS.items():
+        t0 = time.perf_counter()
+        src, dst, T_want = lp.loop_pair(drift_xi, seed, device=dev)
+        e = lp.errors(lp.register(src, dst, fine=fine is not None), T_want)
+        missed = lp.check(name, e)
+        log(f"loop pair {name} (kNN FPFH, Quatro"
+            f"{', GICP' if fine else ''} on the card): "
+            f"{ {k: round(v, 5) if isinstance(v, float) else v for k, v in e.items()} }"
+            f"; {int(src[1].sum())} / {int(dst[1].sum())} points; "
+            f"{time.perf_counter() - t0:.2f} s")
+        if missed:
+            raise AssertionError(f"loop pair {name}: misses {missed}: {e}")
+
+    reset_launches()
+    runs = {}
+    for label, optimized in (("optimized", True), ("advanced", False)):
+        lc = LoopClosure(knn_backend_config(optimized), bp.PIPE_SRC_CAP,
+                         bp.PIPE_DST_CAP)
+        reg, meas = lc.fetch_and_perform(store, 1)
+        torch.cuda.synchronize()
+        if int(reg.closest_idx) != 0 or not bool(torch.isfinite(
+                reg.pose_between).all() and torch.isfinite(meas).all()):
+            raise AssertionError(f"knn attempt {label}: {reg}")
+        t_err, r_err = gate_error(reg.pose_between, drift)
+        log(f"knn attempt {label}@{bp.PIPE_SRC_CAP}/{bp.PIPE_DST_CAP}: "
+            f"valid={bool(reg.is_valid)}, converged="
+            f"{bool(reg.is_converged)}, fitness {float(reg.score):.4f}, "
+            f"bench gate error {t_err * 100:.2f} cm / {r_err:.5f} rad (not "
+            f"gated: the stream backend is the gated one)")
+        runs[label] = (lc, reg)
+    single = launches_now()
+    log(f"knn attempt launches over {len(runs)} attempts: {single}")
+    if not all(single[k] > 0 for k in ("knn_k48", "knn_k15", "knn",
+                                       "knn_banded")) or any(
+            single[k] for k in ("moments", "spfh", "agg") + BATCHED):
+        raise AssertionError(f"the knn attempt's launches: {single}")
+
+    reset_launches()
+    qs, cs = [1] * KNN_LANES, [0] * (KNN_LANES - 1) + [-1]
+    for label, (lc, reg) in runs.items():
+        breg = lc.perform_loop_closure_batch(store, qs, cs)
+        torch.cuda.synchronize()
+        worst = (0.0, 0.0)
+        for i in range(KNN_LANES - 1):
+            if bool(breg.is_valid[i]) != bool(reg.is_valid) or bool(
+                    breg.is_converged[i]) != bool(reg.is_converged):
+                raise AssertionError(f"knn batch {label} lane {i}: decision "
+                                     f"differs from the single attempt")
+            worst = tuple(max(a, b) for a, b in zip(worst, pose_gap(
+                breg.pose_between[i], reg.pose_between)))
+        if worst[0] >= 1e-3 or worst[1] >= 1e-3 or bool(breg.is_valid[-1]):
+            raise AssertionError(f"knn batch {label}: lanes {worst} from "
+                                 f"the single attempt, pad lane valid="
+                                 f"{bool(breg.is_valid[-1])}")
+        log(f"knn batch {label} B={KNN_LANES}: lanes within {worst[0]:.3e} "
+            f"m / {worst[1]:.3e} rad of the single attempt, same decisions")
+    batched = launches_now()
+    log(f"knn batched launches over {len(runs)} registrations: {batched}")
+    if not all(batched[k] > 0 for k in ("knn_b_k48", "knn_b_k15", "knn_b",
+                                        "knn_banded_b")) or any(
+            batched[k] for k in SINGLE + ("moments_b", "spfh_b", "agg_b")):
+        raise AssertionError(f"the knn batch's launches: {batched}")
+
+    p, m = clouds[("src", bp.PIPE_SRC_CAP)]
+    dp, dm = clouds[("dst", bp.PIPE_DST_CAP)]
+    vp = store.poses_corrected[:2, :3, 3]
+    desc_s, val_s = fpfh.fpfh(p, m, 0.9, 1.5, viewpoint=vp[1])
+    desc_d, val_d = fpfh.fpfh(dp, dm, 0.9, 1.5, viewpoint=vp[0])
+    return single, batched, {
+        "self": (dp, dm, dp, dm), "lanes": (P, M, P, M),
+        "desc": (desc_s, val_s, desc_d, val_d)}
+
+
+def big_k_timings(kin, card):
+    """K1 / K1b at k = 15 and 48 on the inputs ``knn_fpfh`` returns (the
+    pipeline-padded target's self-search, its jittered lanes), each against
+    its plain version (``time_pairs``) and the cdist + topk yardstick, with
+    its bound; and K1 at k = 64, F = 33 on the kNN FPFH descriptors, logged.
+    Returns (ms, library_ms, bounds) keyed as BY_K."""
+    import torch
+
+    big = {key: ("lanes" if base == "knn_b" else "self", k)
+           for key, (base, k) in BY_K.items()}
+    # the plain versions sort 1,024 x 32,768 chunks (0.1-0.5 s a call):
+    # medians of 3
+    ms = time_pairs({key: k1_pair(kin[src], k, src == "lanes")
+                     for key, (src, k) in big.items()}, card, plain_reps=3)
+    library, bounds = {}, {}
+    for key, (src, k) in big.items():
+        library[key] = cuda_ms(lambda: knn_topk_library(*kin[src], k))
+        bounds[key] = knn_bound(*kin[src], k)
+        log(f"time {key} library yardstick (cdist, mask, topk): "
+            f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
+            f"(call) / {kernel_ms(ms[key]):.4f} ms (device); bound "
+            f"{bounds[key][0]:.5f} ms by {bounds[key][1]}; shape "
+            f"{tuple(kin[src][0].shape)} [{card}]")
+        torch.cuda.empty_cache()
+    t64 = next(iter(time_pairs({"knn k=64 F=33 (kNN FPFH descriptors)":
+                                k1_pair(kin["desc"], 64, False)},
+                               card, plain_reps=3).values()))
+    b64 = knn_bound(*kin["desc"], 64)
+    log(f"knn k=64 F=33 {tuple(kin['desc'][0].shape)} x "
+        f"{tuple(kin['desc'][2].shape)}: library (cdist, mask, topk) "
+        f"{cuda_ms(lambda: knn_topk_library(*kin['desc'], 64)):.4f} ms, "
+        f"kernel {t64[0]:.4f} ms (call) / {kernel_ms(t64):.4f} ms (device), "
+        f"bound {b64[0]:.5f} ms by {b64[1]} [{card}]")
+    torch.cuda.empty_cache()
+    return ms, library, bounds
+
+
+def grid_cov(dev, card):
+    """The grid plane covariances (``gicp.plane_covariances(backend=
+    "grid")``) of test_quatro's fine-stage pair on the card against the
+    CPU: the same neighbours, equal valid masks, covariances within 1e-5
+    except where the neighbourhood's two smallest eigenvalues are within
+    1e-3 of its largest (an ill-defined plane normal: at most 1 % of the
+    valid rows, counted); then ``gicp.align(cov_backend="grid")`` after
+    the kNN Quatro stage meets that pair's 2 cm / 0.15 rad."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import gicp, hashgrid, se3
+    from fast_lio_sam_qn_tpu_torch.tools import loop_pairs as lp
+
+    drift_xi, seed, _, _ = lp.PAIRS["then_gicp_fine"]
+    src, dst, T_want = lp.loop_pair(drift_xi, seed, device=dev)
+    cpu = torch.device("cpu")
+    for tag, (p, m, _) in (("src", src), ("dst", dst)):
+        t = gicp.grid_table_size(p.shape[0])
+        found = {}
+        for d in (dev, cpu):
+            grid = hashgrid.build(p.to(d), m.to(d), 0.3, t)
+            found[d] = hashgrid.query_knn(grid, p.to(d), m.to(d), 15, 5)
+        pts, _, ok = (x.cpu() for x in found[dev])
+        if not (torch.equal(ok, found[cpu][2])
+                and torch.equal(pts[ok], found[cpu][0][ok])):
+            raise AssertionError(f"grid_cov {tag}: the neighbours differ")
+        gc, gv = gicp.plane_covariances(p, m, backend="grid")
+        cc, cv = gicp.plane_covariances(p.cpu(), m.cpu(), backend="grid")
+        if not torch.equal(gv.cpu(), cv):
+            raise AssertionError(f"grid_cov {tag}: valid masks differ")
+        w = ok.double()
+        cnt = w.sum(1).clamp(min=1)
+        x = pts.double()
+        dev_ = (x - (x * w[..., None]).sum(1)[:, None] / cnt[:, None, None]
+                ) * w[..., None]
+        ev = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", dev_, dev_))
+        loose = ev[:, 1] - ev[:, 0] < 1e-3 * ev[:, 2]
+        err = torch.abs(gc.cpu() - cc).reshape(-1, 9).amax(1)
+        beyond = err > 1e-5
+        log(f"grid_cov {tag}: {int(cv.sum())} of {int(m.sum())} points "
+            f"valid on both devices, the same neighbours; max |card - CPU| "
+            f"{float(err.max()):.3e}, {int(beyond.sum())} rows beyond 1e-5 "
+            f"(all with an ill-defined normal: "
+            f"{bool(not (beyond & ~loose).any())}); grid "
+            f"{cuda_ms(lambda: gicp.plane_covariances(p, m, backend='grid')):.3f}"
+            f" ms, brute (K1 k=15) "
+            f"{cuda_ms(lambda: gicp.plane_covariances(p, m)):.3f} ms "
+            f"[{card}]")
+        if bool((beyond & ~loose).any()) or int(beyond.sum()) > 0.01 * int(
+                cv.sum()):
+            raise AssertionError(f"grid_cov {tag}: covariances differ")
+    res = lp.register(src, dst, fine=False).coarse
+    fine = gicp.align(se3.transform_points(src[0], res.transform), src[1],
+                      dst[0], dst[1], cov_backend="grid")
+    e = lp.errors(lp.PairResult(res, fine.transform @ res.transform,
+                                fine.fitness), T_want)
+    log(f"grid_cov align(cov_backend='grid') after the kNN Quatro stage: "
+        f"{e['fine_t'] * 100:.3f} cm / {e['fine_r']:.5f} rad, fitness "
+        f"{e['fitness']:.4f}, {fine.num_iters} iterations")
+    if not (e["fine_t"] < 0.02 and e["fine_r"] < 0.15):
+        raise AssertionError(f"grid_cov align: {e}")
+
+
+def longrun_phase(dev, card, scans=LONGRUN_SCANS):
+    """tools/longrun.py on the card: the 1,600-scan course through
+    ``sim_lio_stream`` and the pipeline, every pin of
+    tests/test_golden_longrun.py asserted (``longrun.check_golden``); LIO
+    and feed spans (CUDA events), ms per scan, peak memory, launches."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.tools import longrun as lr
+
+    cfg = lr.longrun_config()
+    spans = EventSpans()
+    mem = PhaseMemory(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    feed = lr.longrun_feed(cfg, scans, prof=spans, device=dev)
+    if scans == lr.N_SCANS:
+        summary = lr.replay(cfg, feed, prof=spans, device=dev)
+    else:   # a cut run: the capacities need not grow
+        pipe, _ = lr.run_pipeline(cfg, feed, prof=spans, device=dev)
+        summary = {"n_keyframes": pipe.current_kf_idx,
+                   "loop_attempts": len(pipe.loop_events)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"longrun: {scans} scans in {wall:.1f} s ({wall / scans * 1e3:.2f} "
+        f"ms a scan, the simulation included), {mem}; launches "
+        f"{launches_now()} [{card}]")
+    log(f"longrun summary: {summary}")
+    spans.report("longrun", card, skip=1)
+    if scans == lr.N_SCANS:
+        missed = lr.check_golden(summary)
+        if missed:
+            raise AssertionError(f"longrun misses {missed}: {summary}")
+        log("longrun: every pin of tests/test_golden_longrun.py holds")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2220,7 +2583,7 @@ def main() -> int:
         return 0
     log(f"kNN edge cases: {knn_edge_cases(dev)} cases equal")
     store, drift = bp.build_store(dev)
-    errs = {k: 0.0 for k in launch_counters()}
+    errs = {k: 0.0 for k in launches_now()}
     inputs, nn_args, sorted_nn, desc_args = kernel_parity(
         store, bp.SRC_CAP, bp.DST_CAP, errs)
     pdesc_args = kernel_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP,
@@ -2234,8 +2597,7 @@ def main() -> int:
                                      lanes=pipeline_config().loop.loop_batch)
 
     counters = launch_counters()
-    for cnt in counters.values():
-        cnt.launches = 0
+    reset_launches()
     runs = main_path_runs(store, drift)
     launches = launches_now()
     n_attempts = 2 * len(runs)
@@ -2246,8 +2608,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the attempt never launched: "
                              f"{launches}")
 
-    for cnt in counters.values():
-        cnt.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     pipe, gt_kf, ate_odom, ticks, feeds = pipeline_run(dev)
@@ -2328,7 +2689,7 @@ def main() -> int:
 
     knn_in = {"knn": desc_args, "knn_banded": sorted_nn,
               "knn_b": (bdesc, bval, ddesc, dval), "knn_banded_b": bsorted}
-    library = {k: None for k in launch_counters()}
+    library = {k: None for k in launches_now()}
     for key, args in knn_in.items():
         library[key] = cuda_ms(lambda: knn_library(*args))
         log(f"time {key} library yardstick (cdist, mask, min): "
@@ -2408,6 +2769,19 @@ def main() -> int:
             f"[{card}]")
     pipeline_timings(pipe, multi, feeds, card)
 
+    t0 = time.perf_counter()
+    k_single, k_batched, kin = knn_fpfh(dev, card, store, drift, errs)
+    for key, (base, _) in BY_K.items():
+        launches[key] = (k_batched if base == "knn_b" else k_single)[key]
+    big_ms, big_lib, big_bounds = big_k_timings(kin, card)
+    ms.update(big_ms)
+    library.update(big_lib)
+    bounds.update(big_bounds)
+    log(f"knn_fpfh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grid_cov(dev, card)
+    log(f"grid_cov: {time.perf_counter() - t0:.1f} s")
+
     lio_golden(dev, card)
     lio_kitti(dev, card)
     lio_card_vs_cpu(dev)
@@ -2416,6 +2790,9 @@ def main() -> int:
     lio_extrinsic(dev, card)
     cli_sim(dev, card, errs)
     dataset_phases(dev, card, errs)
+    t0 = time.perf_counter()
+    longrun_phase(dev, card)
+    log(f"longrun: {time.perf_counter() - t0:.1f} s")
 
     knn_src = "fast_lio_sam_qn_tpu/ops/pallas_knn.py"
     fs_src = "fast_lio_sam_qn_tpu/ops/fpfh_stream.py"
@@ -2426,6 +2803,12 @@ def main() -> int:
         ("fpfh_spfh", "fpfh_spfh.cu", f"{fs_src}:224", "spfh"),
         ("fpfh_agg", "fpfh_agg.cu", f"{fs_src}:260", "agg"),
         ("knn_batched", "knn.cu", f"{knn_src}:185 (vmapped)", "knn_b"),
+        ("knn_k15", "knn.cu", f"{knn_src}:67 (k = 15)", "knn_k15"),
+        ("knn_k48", "knn.cu", f"{knn_src}:67 (k = 48)", "knn_k48"),
+        ("knn_batched_k15", "knn.cu", f"{knn_src}:185 (vmapped, k = 15)",
+         "knn_b_k15"),
+        ("knn_batched_k48", "knn.cu", f"{knn_src}:185 (vmapped, k = 48)",
+         "knn_b_k48"),
         ("knn_banded_batched", "knn_banded.cu", f"{knn_src}:469",
          "knn_banded_b"),
         ("fpfh_moments_batched", "fpfh_moments.cu", f"{fs_src}:419",

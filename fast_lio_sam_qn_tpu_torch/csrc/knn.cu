@@ -27,10 +27,17 @@
 // (d2, idx) partial and merge_slices takes their lexicographic minimum, so
 // the result does not depend on the split or on the order CTAs finish.
 //
-// Design, 1 < k <= 32 (off the main path: gicp.plane_covariances at
-// k = 15): one thread per query with its sorted top-k in registers, db
-// tiles of 128 rows in shared memory read as broadcasts, the walk stopped
-// at db_end, blocks past q_end skipped.
+// Design, 1 < k <= 64 (gicp.plane_covariances at k = 15, the kNN FPFH
+// backend's shared neighbour search at k = 48 by default, up to 64): one
+// thread per query with its sorted top-k in registers (a list of 16, 32
+// or 64 slots, the smallest that holds k), db tiles of 128 rows in shared
+// memory read as broadcasts, the walk stopped at db_end, blocks past q_end
+// skipped.  At 64 slots a thread holds 128 list registers beside qv[FMAX]:
+// at F = 3 that is far below the 255-register cap; at F = 33 ptxas may
+// spill the list to local memory, which is slower and still exact (the
+// build log prints the spill lines).  A candidate is compared with the
+// k-th distance first, so after the first tiles almost every pair costs
+// F FMAs and one compare; inserts, the list's shifts, are rare.
 //
 // Grid-batched: blockIdx.y is the cloud; each cloud's operands are one
 // contiguous slab, so a lane runs exactly the single-cloud body and gives
@@ -102,7 +109,7 @@ int launch_k1(const float* q, const float* qq, const uint8_t* qmask, const float
   return flsq::launch_merge(part_d, part_i, qmask, q_end, b, m, splits, out_d, out_i, stream);
 }
 
-// --- 1 < k <= 32 ----------------------------------------------------------------
+// --- 1 < k <= 64 ----------------------------------------------------------------
 
 template <int FMAX, int KMAX>
 __global__ void knnk_kernel(const float* __restrict__ q, const float* __restrict__ qq,
@@ -182,8 +189,11 @@ int launch_kn(const float* q, const float* qq, const uint8_t* qmask, const float
   if (k <= 16) {
     knnk_kernel<FMAX, 16><<<grid, kNnBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, q_end,
                                                           db_end, m, n, f, k, out_d, out_i);
-  } else {
+  } else if (k <= 32) {
     knnk_kernel<FMAX, 32><<<grid, kNnBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, q_end,
+                                                          db_end, m, n, f, k, out_d, out_i);
+  } else {
+    knnk_kernel<FMAX, 64><<<grid, kNnBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, q_end,
                                                           db_end, m, n, f, k, out_d, out_i);
   }
   return flsq::launch_status();
@@ -196,12 +206,12 @@ int launch_kn(const float* q, const float* qq, const uint8_t* qmask, const float
 // none); out_d (m, k), out_i (m, k); every operand (b, ...) contiguous.  At k = 1,
 // splits (1..8) slices of each lane's db range run on grid z; with splits > 1, part_d /
 // part_i are (splits, b, m) scratch.  At k > 1, splits is 1.
-// 1 <= b <= 65535, 1 <= f <= 64, 1 <= k <= 32, m >= 1.
+// 1 <= b <= 65535, 1 <= f <= 64, 1 <= k <= 64, m >= 1.
 FLSQ_API int flsq_knn(const float* q, const float* qq, const uint8_t* qmask, const float* db,
                       const float* dd, const uint8_t* dbmask, const int* q_end,
                       const int* db_end, int b, int m, int n, int f, int k, int splits,
                       float* part_d, int* part_i, float* out_d, int* out_i, void* stream) {
-  if (b < 1 || b > 65535 || m < 1 || n < 0 || f < 1 || f > 64 || k < 1 || k > 32 ||
+  if (b < 1 || b > 65535 || m < 1 || n < 0 || f < 1 || f > 64 || k < 1 || k > 64 ||
       splits < 1 || splits > flsq::kMaxSplits || (k > 1 && splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -6,8 +6,12 @@ fast_lio_sam_qn_tpu/models/loop_closure.py (single-candidate path).
 - ``set_src_and_dst_cloud``: scan and submap modes, voxelized clouds.
 - ``icp_alignment``: GICP, accepted iff converged, fitness below the
   threshold and (by default) not translation-degenerate.
-- ``coarse_to_fine_alignment``: streaming radius-FPFH -> Quatro -> GICP on
-  the coarse-aligned source, final = fine @ coarse.
+- ``coarse_to_fine_alignment``: FPFH -> Quatro -> GICP on the
+  coarse-aligned source, final = fine @ coarse.  The features come from
+  the streaming radius FPFH (``quatro.fpfh_backend == "stream"``, whose
+  radius moments also give GICP's plane covariances) or from the kNN FPFH
+  (``"knn"``: one K1 search at k = 48 per cloud; GICP's covariances then
+  come from their own K1 search at k = 15).
 - ``fetch_and_perform``: one loop tick — candidate fetch, registration when
   there is a candidate, and the graph measurement.
 - ``fetch_closest_batch`` / ``perform_loop_closure_batch``: B candidates in
@@ -23,7 +27,7 @@ lane.
 
 The reference fuses a tick into one jitted program with ``lax.cond``; here
 the tick reads the candidate index back once and branches in Python.  The
-sharded batch (a device mesh) is not ported.
+sharded batch (a device mesh) is not ported yet.
 """
 from __future__ import annotations
 
@@ -114,9 +118,9 @@ class LoopClosure:
 
     def __init__(self, cfg: LoopClosureConfig, src_cap: int = 8192,
                  dst_cap: int = 16384):
-        if cfg.quatro.fpfh_backend != "stream":
-            raise ValueError("only the streaming FPFH backend is ported "
-                             f"(got fpfh_backend={cfg.quatro.fpfh_backend!r})")
+        if cfg.quatro.fpfh_backend not in ("stream", "knn"):
+            raise ValueError("unknown FPFH backend "
+                             f"{cfg.quatro.fpfh_backend!r}")
         self.cfg = cfg
         self.src_cap = src_cap
         self.dst_cap = dst_cap
@@ -179,14 +183,23 @@ class LoopClosure:
         """Quatro coarse -> GICP fine over B lanes ((B, N, 3) clouds, (B, 3)
         viewpoints), the kernels chosen by ``batched`` as in
         ``icp_alignment``; Quatro's clique / GNC / voting steps run lane by
-        lane.  The plane covariances come from the FPFH radius moments; the
-        src ones are rotated into the coarse-aligned frame, C' = R C R^T.
-        Returns (final_T (B, 4, 4), fitness (B,), valid (B,), Quatro
+        lane.  On the stream backend the plane covariances come from the
+        FPFH radius moments, the src ones rotated into the coarse-aligned
+        frame, C' = R C R^T; on the kNN backend ``icp_alignment`` searches
+        them.  Returns (final_T (B, 4, 4), fitness (B,), valid (B,), Quatro
         converged (B,))."""
         qc = self.cfg.quatro
         radii = (qc.fpfh_normal_radius, qc.fpfh_radius)
+        stream = qc.fpfh_backend == "stream"
 
         def features(p, m, vp):
+            if not stream:
+                caps = dict(k_feat=qc.fpfh_k_feat, k_normal=qc.fpfh_k_normal)
+                if batched:
+                    return fpfh.fpfh_batched(p, m, *radii, viewpoint=vp,
+                                             **caps)
+                return kernels.per_lane(lambda *a: fpfh.fpfh(
+                    *a[:2], *radii, viewpoint=a[2], **caps), p, m, vp)
             if batched:
                 return fpfh_stream.fpfh_radius_batched(
                     p, m, *radii, vp, cov_radius=qc.fpfh_cov_radius)
@@ -194,8 +207,8 @@ class LoopClosure:
                 *a[:2], *radii, a[2], cov_radius=qc.fpfh_cov_radius),
                 p, m, vp)
 
-        ds, fs, (_, nvs, cs) = features(src, src_mask, src_vp)
-        dd, fd, (_, nvd, cd) = features(dst, dst_mask, dst_vp)
+        ds, fs, *geo_s = features(src, src_mask, src_vp)
+        dd, fd, *geo_d = features(dst, dst_mask, dst_vp)
         fs = fpfh.distinctive(ds, fs, qc.planarity_threshold)
         fd = fpfh.distinctive(dd, fd, qc.planarity_threshold)
         match = dict(distance_threshold=qc.distance_threshold,
@@ -216,10 +229,14 @@ class LoopClosure:
         # pure rotation for C' = R C R^T (the transform carries s R when
         # estimating scale)
         Rq = q.transform[:, :3, :3] / q.scale[:, None, None]
-        src_covs = (torch.einsum("zab,znbc,zdc->znad", Rq, cs, Rq), nvs)
+        src_covs = dst_covs = None
+        if stream:
+            (_, nvs, cs), (_, nvd, cd) = geo_s[0], geo_d[0]
+            src_covs = (torch.einsum("zab,znbc,zdc->znad", Rq, cs, Rq), nvs)
+            dst_covs = (cd, nvd)
         fine, fine_valid = self.icp_alignment(
             src_c, src_mask, dst, dst_mask, src_cov=src_covs,
-            dst_cov=(cd, nvd), batched=batched)
+            dst_cov=dst_covs, batched=batched)
         # the committed measurement is the rigid projection of the coarse
         # transform (a no-op unless estimating scale)
         q_rigid = q.transform.clone()

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from . import knn_cuda, linalg3, se3
+from . import hashgrid, knn_cuda, linalg3, se3
 
 PLANE_EPS = 1e-3  # plane regularization: eigenvalues replaced by (e, 1, 1)
 
@@ -58,11 +58,41 @@ def plane_covariances_from_knn(points, mask, nn_pts, nn_valid):
     return torch.where(valid[:, None, None], cov_reg, eye), valid
 
 
-def plane_covariances(points, mask, k: int = 15):
-    """Plane covariances from the exact k nearest neighbours (the
-    reference's ``backend="brute"``), through kernel K1."""
-    _, nn_idx, nn_valid = knn_cuda.knn(points, mask, points, mask, k)
-    nn_pts = points[torch.clamp(nn_idx, min=0).long()]
+GRID_ROWS = 8192  # query rows per windowed hash-grid search
+
+
+def grid_table_size(n: int) -> int:
+    """The grid backend's hash-table size for n points: the smallest power
+    of two >= 4n, at least 1024 (the reference's rule)."""
+    return max(1024, 1 << (int(n * 4 - 1)).bit_length())
+
+
+def plane_covariances(points, mask, k: int = 15, backend: str = "brute",
+                      res: float = 0.3, window: int = 5,
+                      table_size: int | None = None):
+    """Per-point plane covariances of one (N, 3) cloud, eigenvalues
+    regularized to (eps, 1, 1): (covs (N, 3, 3), valid (N,)).
+
+    ``backend="brute"``: the exact k nearest neighbours, through kernel
+    K1.  ``backend="grid"``: the k nearest within a +-(window // 2) voxel
+    neighbourhood of a hash grid at ``res`` (``hashgrid.build`` /
+    ``query_knn``; the reference's default); a point with fewer than 3
+    in-window neighbours is invalid rather than reaching across the
+    cloud.  The grid search runs over chunks of GRID_ROWS query rows."""
+    if backend == "grid":
+        t = table_size or grid_table_size(points.shape[0])
+        grid = hashgrid.build(points, mask, res=res, table_size=t)
+        found = [hashgrid.query_knn(grid, points[s:s + GRID_ROWS],
+                                    mask[s:s + GRID_ROWS], k=k,
+                                    window=window)
+                 for s in range(0, points.shape[0], GRID_ROWS)]
+        nn_pts = torch.cat([f[0] for f in found])
+        nn_valid = torch.cat([f[2] for f in found])
+    elif backend == "brute":
+        _, nn_idx, nn_valid = knn_cuda.knn(points, mask, points, mask, k)
+        nn_pts = points[torch.clamp(nn_idx, min=0).long()]
+    else:
+        raise ValueError(f"unknown covariance backend {backend!r}")
     return plane_covariances_from_knn(points, mask, nn_pts, nn_valid)
 
 
@@ -209,11 +239,20 @@ def align_batched(src, src_mask, dst, dst_mask, init_T=None, *, src_cov,
                       _degenerate(st.H, st.num_corr))
 
 
-def align(src, src_mask, dst, dst_mask, init_T=None, *, src_cov, dst_cov,
-          **kw) -> GicpResult:
+def align(src, src_mask, dst, dst_mask, init_T=None, *, k: int = 15,
+          cov_backend: str = "grid", voxel_res: float = 0.3, src_cov=None,
+          dst_cov=None, **kw) -> GicpResult:
     """``align_batched`` of one cloud pair through the single-cloud K2
     (the reference's ``align``): unbatched inputs and outputs, num_iters an
-    int."""
+    int.  ``src_cov`` / ``dst_cov``: precomputed (covs (N, 3, 3), valid
+    (N,)) pairs; where one is None, ``plane_covariances`` computes it with
+    ``k``, ``cov_backend`` and ``voxel_res``, as the reference does."""
+    if src_cov is None:
+        src_cov = plane_covariances(src, src_mask, k=k, backend=cov_backend,
+                                    res=voxel_res)
+    if dst_cov is None:
+        dst_cov = plane_covariances(dst, dst_mask, k=k, backend=cov_backend,
+                                    res=voxel_res)
     one = align_batched(
         src[None], src_mask[None], dst[None], dst_mask[None],
         None if init_T is None else init_T[None],

@@ -4,7 +4,8 @@ csrc/knn_banded.cu).
 Counterpart of fast_lio_sam_qn_tpu/ops/pallas_knn.py:
 
 - K1 (``knn`` / ``nn``, the reference's ``knn_pallas`` / ``nn_pallas`` over
-  ``_knn_kernel``): brute force over every valid db row.
+  ``_knn_kernel``): brute force over every valid db row, 1 <= k <= 64
+  (k = 1 matching and GICP, k = 15 covariances, k = 48 the kNN FPFH).
 - K2 (``knn_banded`` / ``nn_banded``, over ``_knn_kernel_banded``): the
   same result, searching for each query block only the db tiles that the
   bbox keep rule of ``block_tile_keep`` admits.  Both clouds should be
@@ -12,7 +13,8 @@ Counterpart of fast_lio_sam_qn_tpu/ops/pallas_knn.py:
 - ``*_batched``: the same kernels over B independent clouds in one launch,
   the batch on the grid's y axis — the reference's grid-batched lowerings
   (pallas_knn.py:469 for K2; Pallas's own vmap rule for K1).  Each has its
-  own launch counter, apart from the single-cloud one.
+  own launch counter, apart from the single-cloud one; K1's also count by
+  k (``launches_k``).  K2 takes k <= 32.
 
 The port returns exact (d2, idx) pairs: there is no packed-key quantization
 and so no ``MAX_DB`` cap.  A CPU tensor takes the plain version (ops/knn.py
@@ -33,7 +35,8 @@ from .. import kernels
 from .knn import brute_knn, sq_norms
 
 MAX_F = 64
-MAX_K = 32
+MAX_K = 64           # K1 (csrc/knn.cu flsq_knn)
+BAND_MAX_K = 32      # K2 (csrc/knn_banded.cu flsq_knn_banded)
 MORTON_CELL = 0.75   # locality cell [m], as pallas_knn._MORTON_CELL
 PRUNE_SLACK = 1.03   # as pallas_knn._PRUNE_SLACK
 BAND_BLOCK = 64      # query rows per CTA, K2's keep-rule block (kNnBlock)
@@ -133,10 +136,12 @@ def knn(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
         return brute_knn(queries, qmask, db, dbmask, k)
     out = _launch_knn(queries[None], qmask[None], db[None], dbmask[None], k)
     knn.launches += 1
+    knn.launches_k[k] = knn.launches_k.get(k, 0) + 1
     return tuple(o[0] for o in out)
 
 
 knn.launches = 0
+knn.launches_k = {}   # launches by k
 
 
 def knn_batched_plain(queries, qmask, db, dbmask, k: int):
@@ -155,10 +160,12 @@ def knn_batched(queries: torch.Tensor, qmask: torch.Tensor, db: torch.Tensor,
         return knn_batched_plain(queries, qmask, db, dbmask, k)
     out = _launch_knn(queries, qmask, db, dbmask, k)
     knn_batched.launches += 1
+    knn_batched.launches_k[k] = knn_batched.launches_k.get(k, 0) + 1
     return out
 
 
 knn_batched.launches = 0
+knn_batched.launches_k = {}
 
 
 def nn(queries, qmask, db, dbmask):
@@ -274,8 +281,8 @@ def _launch_banded(queries, qmask, db, dbmask, k: int):
     n = db.shape[1]
     n_tiles = -(-n // BAND_TILE)
     kernels.require_batch(b)
-    if not (1 <= k <= MAX_K and m >= 1 and n_tiles <= BAND_MAX_TILES):
-        raise ValueError(f"knn_banded kernel takes 1 <= k <= {MAX_K}, M >= 1"
+    if not (1 <= k <= BAND_MAX_K and m >= 1 and n_tiles <= BAND_MAX_TILES):
+        raise ValueError(f"knn_banded kernel takes 1 <= k <= {BAND_MAX_K}, M >= 1"
                          f", N <= {BAND_TILE * BAND_MAX_TILES}; got k={k}, "
                          f"M={m}, N={n}")
     dev = queries.device

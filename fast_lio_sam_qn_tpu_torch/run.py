@@ -26,9 +26,10 @@ equivalent, as the JAX package's ``run.py``:
       pipeline through ApproximateTime sync.
 
 ``--device`` (default ``cuda``) holds every tensor; ``--device cpu`` runs
-the kernels' plain versions.  ``--plot`` and the device mesh
-(``--devices``) are not ported yet: their flags stop with an error that
-names the ROADMAP item.
+the kernels' plain versions.  ``--plot PNG`` renders the trajectories, the
+loop edges and the map (needs matplotlib; without it the run stops before
+it starts).  The device mesh (``--devices``) is not ported yet: its flag
+stops with an error that names the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from .utils import evaluation, io, sim, sweep
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import Capacities, load_lio_yaml, load_reference_yaml
 from .utils.profiling import Profiler
+from .utils.viz import plot_results, require_matplotlib
 
 IMU_CAP = 64
 
@@ -662,7 +664,7 @@ def run_kitti(args):
 
 # flags of the JAX CLI whose code is not ported yet, with the ROADMAP item
 # that ports it: they stop the run instead of being accepted and ignored
-_NOT_PORTED = {"--plot": 16, "--devices": 19}
+_NOT_PORTED = {"--devices": 19}
 
 
 class _NotPorted(argparse.Action):
@@ -749,6 +751,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--trajectory", default="loop",
                    choices=["loop", "figure8", "corridor"])
     p.add_argument("--scan-hz", type=float, default=None, dest="scan_hz")
+    p.add_argument("--plot", default=None,
+                   help="write a trajectory / loop / map PNG here (needs "
+                        "matplotlib)")
     p.add_argument("-v", "--verbose", action="store_true")
     for flag, item in _NOT_PORTED.items():
         p.add_argument(flag, nargs="?", action=_NotPorted,
@@ -762,6 +767,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.resume and not args.kitti:
         p.error("--resume is supported in integrated (--kitti) mode")
+    if args.plot:
+        require_matplotlib()
     if args.sim:
         pipe, report = run_sim(args)
     elif args.kitti:
@@ -781,6 +788,8 @@ def main(argv=None):
     if args.out or (not args.no_auto_save and (
             cfg.save_map_pcd or cfg.save_map_bag or cfg.save_in_kitti_format)):
         report["exported_to"] = io.save_results(pipe, args.out or "results")
+    if args.plot:
+        report["plot"] = plot_results(pipe, args.plot)
     print(json.dumps(report, indent=2))
     return 0
 

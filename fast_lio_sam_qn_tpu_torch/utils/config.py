@@ -3,10 +3,10 @@ pose-graph pipeline and the CLI's exports, with the loaders of the
 reference's YAML files.
 
 The same fields and defaults as the JAX package's ``utils/config.py``
-(the reference node's *effective* values), except the knobs of backends
-not ported yet (the kNN FPFH's neighbour caps, the sharded solve's
-threshold).  The loaders reproduce the reference node's parameter reads
-exactly: three keys are typo'd in its source —
+(the reference node's *effective* values), except the sharded solve's
+threshold (the device mesh is not ported yet).  The loaders reproduce the
+reference node's parameter reads exactly: three keys are typo'd in its
+source —
 ``/keyframe/nusubmap_keyframes`` (fast_lio_sam_qn.cpp:19),
 ``/quatro/max_nucorrespondences`` (:38) and ``/quatro/rotation/numax_iter``
 (:45) — so the YAML's ``num_submap_keyframes`` / ``max_correspondences`` /
@@ -50,11 +50,15 @@ class QuatroConfig:
     advanced_max_corres: int = 2048           # static cap of advanced matching
     fpfh_normal_radius: float = 0.9           # config.yaml:35 (code default 0.3)
     fpfh_radius: float = 1.5                  # config.yaml:36 (code default 0.5)
-    # "stream" = gather-free streaming radius FPFH (the only ported
-    # backend; the plane covariances come from the same pass)
+    # "stream" = gather-free streaming radius FPFH (the plane covariances
+    # come from the same pass); "knn" = the k-capped neighbour-list FPFH
+    # (ops/fpfh.py), GICP's covariances then from their own k-NN search
     fpfh_backend: str = "stream"
     fpfh_cov_radius: float = 0.6              # plane-covariance neighbourhood
     planarity_threshold: float = 90.0         # fpfh.distinctive gate
+    # neighbour caps of the "knn" backend (PCL's radius search is unbounded)
+    fpfh_k_feat: int = 48
+    fpfh_k_normal: int = 32
     # loop_closure.cpp:24: solve the similarity (sR, t) instead of (R, t)
     estimating_scale: bool = False
     scale_gate: float = 0.1                   # accept only |scale - 1| <= this

@@ -66,9 +66,9 @@ FAST_LIO_YAML = {
                 "dense_publish_en": True, "scan_bodyframe_pub_en": True},
     "pcd_save": {"pcd_save_en": False, "interval": -1},
 }
-# fields of the JAX package's config that belong to backends not ported
-# (the kNN FPFH's caps, the sharded solve); no loader sets them
-JAX_ONLY = {"fpfh_k_feat", "fpfh_k_normal", "pgo_shard_min_factors"}
+# the field of the JAX package's config that belongs to the sharded solve,
+# which is not ported; no loader sets it
+JAX_ONLY = {"pgo_shard_min_factors"}
 # the report of the JAX CLI's --sim mode (fast_lio_sam_qn_tpu/run.py:
 # 284-290, plus the export directory)
 SIM_REPORT_KEYS = {"mode", "scans", "keyframes", "loops_accepted",
@@ -381,6 +381,33 @@ def test_main_auto_save_and_no_auto_save(tmp_path, monkeypatch, capsys):
     report = json.loads(capsys.readouterr().out)
     assert report["exported_to"] == os.path.join("results", "sequence")
     assert (tmp_path / "results" / "sequence" / "poses_tum.txt").exists()
+
+
+def test_main_sim_plot_writes_png(tmp_path, capsys):
+    """--plot renders the trajectories, loop edges and map to a PNG and
+    names it in the report, as the JAX CLI (run.py:904-907)."""
+    pytest.importorskip("matplotlib")
+    png = tmp_path / "run.png"
+    assert run.main(["--sim", "--device", "cpu", "--n-scans", "6",
+                     "--scan-cap", "512", "--table-size", "4096",
+                     "--no-auto-save", "--plot", str(png)]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["plot"] == str(png)
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_plot_without_matplotlib_stops_before_the_run(monkeypatch):
+    """A host without matplotlib: --plot raises ImportError naming it
+    before any scan is processed, never accepted and then ignored."""
+    import importlib.util
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a:
+                        None if name == "matplotlib" else real(name, *a))
+    monkeypatch.setattr(run, "run_sim", lambda args: pytest.fail("ran"))
+    with pytest.raises(ImportError, match="matplotlib") as exc:
+        run.main(["--sim", "--device", "cpu", "--plot", "x.png"])
+    assert exc.value.name == "matplotlib"
 
 
 @pytest.mark.parametrize("flag", sorted(run._NOT_PORTED))
