@@ -14,13 +14,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: a CUDA device is required (there is no CPU fallback); prints
    ``nvidia-smi``'s name and power limit;
-2. builds the hand-written CUDA kernels from ``fast_lio_sam_qn_tpu_torch/csrc``,
-   then holds K1, K1b, K2 and K2b against their plain versions on edge cases
-   of small-integer clouds, where every d2 is exact: ties planted across
-   tile, thread and split-slice edges, masks with holes, an all-masked lane,
-   sizes off every tile, F in {3, 33, 64}, k in {1, 15, 32, 48, 64} (K2 to
-   32); outputs must be equal, K2 must equal K1 and every lane its
-   single-cloud kernel;
+2. builds the hand-written CUDA kernels from ``fast_lio_sam_qn_tpu_torch/csrc``
+   (ptxas's registers, stack and spills logged for every kernel), then
+   holds K1, K1b, K2 and K2b against their plain versions on edge cases of
+   small-integer clouds, where every d2 is exact: ties planted across tile,
+   thread, lane-stride and split-slice edges and further apart than a
+   queue flush of K1's k > 1 path, masks with holes, an all-masked lane, a
+   lane with fewer valid db rows than k, extents off every tile, fewer
+   queries than a CTA, F in {3, 33, 64}, k in {1, 2, 15, 16, 17, 31, 32,
+   33, 48, 63, 64} (K2 at 1, 15, 32); outputs must be equal, K2 must equal
+   K1, every lane its single-cloud kernel and a repeated launch the first;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, on the benchmark's voxelized clouds at the
    benchmark's capacities and at the pipeline's; K2 must also equal K1 bit
@@ -81,8 +84,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K1 at k = 48 and 15, then K1b at k = 48 and 15, must launch), each
    lane within 1 mm / 1e-3 rad of the single attempt with its decision;
    the bench gate's error is printed, not gated; K1 / K1b at k = 15 and
-   48 timed against their plain versions and ``cdist`` + ``topk``, and K1
-   at k = 64, F = 33 on the kNN descriptors;
+   48 timed (call and device ms) against their plain versions, their bound
+   and ``cdist`` + ``topk``, and K1 at k = 64, F = 33 on the kNN
+   descriptors;
 10. grid_cov: ``gicp.plane_covariances(backend="grid")`` of a loop pair's
    clouds on the card against the CPU (the same neighbours, equal valid
    masks, covariances within 1e-5 but where the normal is ill-defined),
@@ -257,13 +261,24 @@ def check_knn(name, kern, plain, q, qm, db, dbm, k):
     return err
 
 
-def edge_clouds(rng, f, m, n, lanes=3):
+# K1 / K1b's edge-case k: around the list's one- and two-register sizes (32,
+# 64) and a queue flush, the covariances' 15 and the kNN FPFH's 48
+EDGE_K = (1, 2, 15, 16, 17, 31, 32, 33, 48, 63, 64)
+EDGE_K_BANDED = (1, 15, 32)
+EDGE_FEW = 9        # valid db rows of edge lane 3, fewer than most k
+
+
+def edge_clouds(rng, f, m, n, lanes=4):
     """``lanes`` clouds of small integers (every product and sum of the d2
-    expansion exact in fp32) with holed masks and a masked tail; lane 1 has
-    no valid query and lane 2 no valid db row.  Rows e - 1 and e of the db
-    are one valid point, and a query sits on it, at every edge e of a
-    thread's rows, a warp's half tile and a tile (so at every split slice
-    edge, which is a tile edge: ops/knn_cuda.py split_lo)."""
+    expansion exact in fp32, so equal distances abound) with holed masks
+    and a masked tail; lane 1 has no valid query, lane 2 no valid db row,
+    lane 3 only EDGE_FEW.  Rows e - 1 and e of the db are one valid point,
+    and a query sits on it, at every edge e of a thread's rows, a warp's
+    stride of 32 rows and a tile of 128 (so at every split slice edge and
+    every edge of K1's k > 1 tiles, which are multiples of 32); rows r and
+    r + 257 are another such pair, further apart than a queue flush (4
+    rows a lane) and across tiles.  Returns the clouds and the number of
+    planted pairs."""
     lo, hi = (-4, 5) if f == 3 else (-2, 3)
     q = rng.integers(lo, hi, (lanes, m, f)).astype(np.float32)
     db = rng.integers(lo, hi, (lanes, n, f)).astype(np.float32)
@@ -271,19 +286,27 @@ def edge_clouds(rng, f, m, n, lanes=3):
     dm = rng.random((lanes, n)) > 0.25
     qm[:, m - m // 5:] = False
     dm[:, n - n // 7:] = False
-    edges = [e for e in range(4, n - n // 7)
+    end = n - n // 7
+    edges = [e for e in range(4, end)
              if e % 128 in (0, 4, 32, 64, 96) or (e < 128 and e % 4 == 0)]
-    for j, e in enumerate(edges):
-        db[:, e] = db[:, e - 1]
-        dm[:, e - 1:e + 1] = True
-        r = (7 * j) % (m - m // 5)
-        q[:, r] = db[:, e]
+    near = {r for e in edges for r in (e - 1, e)}
+    twins = [(r, r + 257) for r in range(10, end - 257, 150)
+             if r not in near and r + 257 not in near]
+    live = m - m // 5
+    for j, (a, b) in enumerate([(e - 1, e) for e in edges] + twins):
+        db[:, b] = db[:, a]
+        dm[:, [a, b]] = True
+        r = (7 * j) % live
+        q[:, r] = db[:, b]
         qm[:, r] = True
     qm[1] = False
     dm[2] = False
+    if lanes > 3:
+        dm[3] = False
+        dm[3, rng.choice(end, EDGE_FEW, replace=False)] = True
     q[:, m - m // 5:] = 0.0
     db[:, n - n // 7:] = 0.0
-    return q, qm, db, dm, len(edges)
+    return q, qm, db, dm, len(edges) + len(twins)
 
 
 def same(name, got, want):
@@ -294,10 +317,13 @@ def same(name, got, want):
 
 
 def knn_edge_cases(dev):
-    """K1/K1b (F 3, 33, 64; k 1, 15, 32, 48, 64) and K2/K2b (F 3; k 1, 15,
-    32) on edge_clouds against their plain versions: d2, indices and flags
-    equal; every lane equal to the single-cloud kernel; K2 equal to K1 on
-    Morton-sorted lanes.  Returns the number of cases."""
+    """K1/K1b (F 3, 33, 64; every k of EDGE_K) and K2/K2b (F 3;
+    EDGE_K_BANDED) on edge_clouds against their plain versions: d2,
+    indices and flags equal; every lane equal to the single-cloud kernel;
+    a repeated K1b launch equal to the first; K2 equal to K1 on
+    Morton-sorted lanes.  Shapes: fewer queries than a CTA of K1's k > 1
+    path (5), 37 x 300 and 461 x 2,477 (db extents off every tile).
+    Returns the number of cases."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
@@ -305,21 +331,23 @@ def knn_edge_cases(dev):
     rng = np.random.default_rng(17)
     cases = 0
     for f in (3, 33, 64):
-        for m, n in ((37, 300), (461, 2477)):
-            q, qm, db, dm, n_edges = edge_clouds(rng, f, m, n)
+        for m, n in ((5, 300), (37, 300), (461, 2477)):
+            q, qm, db, dm, n_pairs = edge_clouds(rng, f, m, n)
             args = [torch.from_numpy(a).to(dev) for a in (q, qm, db, dm)]
             lanes = [tuple(a[i] for a in args) for i in range(len(q))]
             splits = (knn_cuda.split_count(len(q), m, n, 1),
                       knn_cuda.split_count(1, m, n, 1))
-            for k in (1, 15, 32) + BIG_K:
+            for k in EDGE_K:
                 tag = f"F={f} k={k} {m}x{n}"
                 got = knn_cuda.knn_batched(*args, k)
                 same(f"K1b {tag}", got, knn_cuda.knn_batched_plain(*args, k))
+                same(f"K1b {tag} repeated", knn_cuda.knn_batched(*args, k),
+                     got)
                 for i, one in enumerate(lanes):
                     same(f"K1 {tag} lane {i}", tuple(g[i] for g in got),
                          knn_cuda.knn(*one, k))
                 cases += 1
-                if f != 3 or k > knn_cuda.BAND_MAX_K:
+                if f != 3 or k not in EDGE_K_BANDED:
                     continue
                 so = torch.stack([knn_cuda.morton_order(p, mk)
                                   for p, mk in zip(args[0], args[1])])
@@ -338,10 +366,15 @@ def knn_edge_cases(dev):
                     same(f"K2 {tag} lane {i}", tuple(g[i] for g in got),
                          knn_cuda.knn_banded(*one, k))
                 cases += 1
-            log(f"kNN edge cases F={f} {m}x{n}: {n_edges} planted ties, "
-                f"splits {splits[0]} batched / {splits[1]} single; K1, K1b"
-                f"{', K2, K2b' if f == 3 else ''} equal their plain "
-                f"versions at k = 1, 15, 32, 48, 64 (K2 to 32)")
+            ends = knn_cuda.lane_extents(args[3]).tolist()
+            banded = (f" (K2 at {', '.join(map(str, EDGE_K_BANDED))})"
+                      if f == 3 else "")
+            log(f"kNN edge cases F={f} {m}x{n}: {n_pairs} planted pairs, db "
+                f"extents {ends}, splits {splits[0]} batched / {splits[1]} "
+                f"single; K1, K1b{', K2, K2b' if f == 3 else ''} equal "
+                f"their plain versions at k = "
+                f"{', '.join(map(str, EDGE_K))}{banded}, K1b repeats bit "
+                f"for bit")
     torch.cuda.synchronize()
     return cases
 
@@ -734,16 +767,9 @@ def kernel_parity(store, src_cap, dst_cap, errs, pair=(1, 0), where=""):
 def jittered_lanes(p, m, lanes, seed):
     """``lanes`` copies of one padded cloud: lane i moves every valid point
     by N(0, (0.01 i m)^2) per axis and drops 10 i % of them."""
-    import torch
+    from fast_lio_sam_qn_tpu_torch.tools import profile_knn
 
-    g = torch.Generator(device=p.device).manual_seed(seed)
-    ps, ms = [], []
-    for i in range(lanes):
-        noise = torch.randn(p.shape, generator=g, device=p.device) * 0.01 * i
-        keep = torch.rand(m.shape, generator=g, device=p.device) >= 0.1 * i
-        ps.append(torch.where(m[:, None], p + noise, p))
-        ms.append(m & keep)
-    return torch.stack(ps).contiguous(), torch.stack(ms)
+    return profile_knn.jittered_lanes(p, m, lanes, seed)
 
 
 def same_lanes(name, batched, single_fn):
@@ -1118,7 +1144,7 @@ def lane_vs_single(pipe, tick):
 
 
 # the port's kernels, as the profiler names them (csrc/*.cu)
-PORT_KERNELS = ("knn1_kernel", "knnk_kernel", "banded1_kernel",
+PORT_KERNELS = ("knn1_kernel", "knnk_warp_kernel", "banded1_kernel",
                 "bandedk_kernel", "tile_bbox_kernel", "merge_slices",
                 "moments_kernel", "spfh_kernel", "agg_kernel")
 
@@ -2562,6 +2588,7 @@ def main() -> int:
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
     from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+    from fast_lio_sam_qn_tpu_torch.tools import profile_knn
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -2574,9 +2601,10 @@ def main() -> int:
     kernels.load_library()
     log(f"kernels built in {nvcc_s:.1f} s (nvcc), ready in "
         f"{time.perf_counter() - t0:.1f} s: {path.name}")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for e in profile_knn.ptxas_entries(path.with_suffix(".log").read_text()):
+        log(f"  ptxas {e['name']}: {e['registers']} registers, {e['stack']} B "
+            f"stack, {e['spill_stores']} / {e['spill_loads']} B spill stores "
+            f"/ loads")
 
     if "--trace-fpfh-order" in sys.argv[1:]:
         trace_fpfh_order(dev)

@@ -27,17 +27,36 @@
 // (d2, idx) partial and merge_slices takes their lexicographic minimum, so
 // the result does not depend on the split or on the order CTAs finish.
 //
-// Design, 1 < k <= 64 (gicp.plane_covariances at k = 15, the kNN FPFH
-// backend's shared neighbour search at k = 48 by default, up to 64): one
-// thread per query with its sorted top-k in registers (a list of 16, 32
-// or 64 slots, the smallest that holds k), db tiles of 128 rows in shared
-// memory read as broadcasts, the walk stopped at db_end, blocks past q_end
-// skipped.  At 64 slots a thread holds 128 list registers beside qv[FMAX]:
-// at F = 3 that is far below the 255-register cap; at F = 33 ptxas may
-// spill the list to local memory, which is slower and still exact (the
-// build log prints the spill lines).  A candidate is compared with the
-// k-th distance first, so after the first tiles almost every pair costs
-// F FMAs and one compare; inserts, the list's shifts, are rare.
+// 1 < k <= 64 (gicp.plane_covariances at k = 15, the kNN FPFH backend's
+// shared neighbour search at k = 48, both self-searches of a voxelized
+// cloud, a few thousand valid rows of up to 32,768).  What bounds it:
+// chip_smoke.py's knn_bound counts 2F + 2 flops a valid pair and the
+// operand and output bytes, about 3-4 us at 5,045 rows and F = 3, by the
+// output bytes at k = 48 (M k 8 bytes, the padding included).  Selection
+// is work the bound does not count: a candidate that beats the running
+// k-th is queued and sorted.  The first kernel ran one thread a query, 64
+// to a CTA: at 5,045 queries two warps on 79 of the 132 SMs, each thread
+// walking every db row as one dependent chain and shifting a 64-slot list
+// in 128 registers (151-255 registers a thread, no room to add warps).
+//
+// Design, k > 1 (knnk_warp_kernel; knn_tile.cuh sel_*): one warp a query,
+// 8 queries a CTA, so 5,045 queries are 5,045 warps.  The CTA stages db
+// tiles ([c][row], 1,024 rows at F = 3, 256 at F = 33, 128 otherwise)
+// with cp.async, double-buffered, and skips the walk when none of its
+// queries is valid; the walk stops at db_end.  Lanes stride over a tile,
+// one row each a step, with the pair arithmetic of the other kernels
+// (__fmul_rn, fmaf in c order, expand_d2, the clamp at 0).  A candidate
+// that beats the list's k-th pair enters its lane's queue of kSelQ; when a
+// queue fills, the warp sorts all queues and merges them into its sorted
+// list of 32 KL pairs, KL = 1 or 2 registers a lane (WarpSelect).  Every
+// comparison is lexicographic on (d2, idx), so the list is the k smallest
+// pairs whatever the walk's order and wherever the queues flush: d2 sorted
+// ascending, ties to the lower db index, (inf, -1) in slots without a
+// valid neighbour and on masked queries, bit for bit the plain version's.
+// No atomics: a launch repeats bit for bit.  A row with +inf |v|^2 (masked,
+// or past the extent) never enters.  The list and queue take at most 12
+// registers a lane where the old list took 128; ptxas spills nothing (chip_smoke.py
+// logs each instantiation).
 //
 // Grid-batched: blockIdx.y is the cloud; each cloud's operands are one
 // contiguous slab, so a lane runs exactly the single-cloud body and gives
@@ -111,13 +130,37 @@ int launch_k1(const float* q, const float* qq, const uint8_t* qmask, const float
 
 // --- 1 < k <= 64 ----------------------------------------------------------------
 
-template <int FMAX, int KMAX>
-__global__ void knnk_kernel(const float* __restrict__ q, const float* __restrict__ qq,
-                            const uint8_t* __restrict__ qmask, const float* __restrict__ db,
-                            const float* __restrict__ dd, const uint8_t* __restrict__ dbmask,
-                            const int* __restrict__ q_end, const int* __restrict__ db_end, int m,
-                            int n, int f, int k, float* __restrict__ out_d,
-                            int* __restrict__ out_i) {
+using flsq::kSelIdle;
+using flsq::kSelQ;
+
+constexpr int kSelWarps = 8;                   // queries (one a warp) per CTA
+constexpr int kSelThreads = 32 * kSelWarps;
+
+// db rows per tile: two buffers of F x (rows + 4) floats stay near 70 KB at
+// F = 33 and 64, so three CTAs share an SM; F = 3 takes longer tiles (fewer
+// barriers)
+template <int FC>
+__host__ __device__ constexpr int sel_rows() {
+  return FC == 3 ? 1024 : FC == 33 ? 256 : 128;
+}
+
+template <int FC>
+size_t sel_smem_bytes(int f) {
+  const int stride = sel_rows<FC>() + 4;
+  return sizeof(float) * (2 * (size_t)f * stride + 2 * sel_rows<FC>() +
+                          (FC > 0 ? 0 : (size_t)kSelWarps * f));
+}
+
+template <int FC, int KL>
+__global__ void __launch_bounds__(kSelThreads, FC == 3 ? 3 : 2)
+    knnk_warp_kernel(const float* __restrict__ q, const float* __restrict__ qq,
+                     const uint8_t* __restrict__ qmask, const float* __restrict__ db,
+                     const float* __restrict__ dd, const uint8_t* __restrict__ dbmask,
+                     const int* __restrict__ q_end, const int* __restrict__ db_end, int m, int n,
+                     int f, int k, float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int ROWS = sel_rows<FC>();
+  constexpr int STRIDE = ROWS + 4;
+  constexpr int PER = (ROWS + kSelThreads - 1) / kSelThreads;  // |v|^2 rows a thread stages
   const size_t lane = blockIdx.y;
   q += lane * m * f;
   qq += lane * m;
@@ -127,76 +170,158 @@ __global__ void knnk_kernel(const float* __restrict__ q, const float* __restrict
   dbmask += lane * n;
   out_d += lane * m * k;
   out_i += lane * m * k;
+  const int F = FC > 0 ? FC : f;
   extern __shared__ float smem[];
-  float* s_db = smem;                // kNnTile * f
-  float* s_dd = smem + kNnTile * f;  // kNnTile, +inf on masked rows
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = row < m;
-  const int dend = static_cast<int>(blockIdx.x * blockDim.x) < q_end[lane] ? db_end[lane] : 0;
+  float* s_db = smem;                   // [2][F][STRIDE]
+  float* s_dd = s_db + 2 * F * STRIDE;  // [2][ROWS], +inf on masked rows
+  const int tid = threadIdx.x, ln = tid & 31, w = tid >> 5;
+  const int row = blockIdx.x * kSelWarps + w;
+  // a warp searches for its query only if it is valid and inside the extent
+  const bool live = row < q_end[lane] && qmask[row] != 0;
+  const int dend = __syncthreads_or(live) ? db_end[lane] : 0;
 
-  float qv[FMAX];
+  float qv[FC > 0 ? FC : 1];
+  float* s_q = s_dd + 2 * ROWS + w * f;  // [kSelWarps][f] when F is not compiled in
+  if constexpr (FC > 0) {
 #pragma unroll
-  for (int c = 0; c < FMAX; ++c) qv[c] = (live && c < f) ? q[(size_t)row * f + c] : 0.0f;
+    for (int c = 0; c < FC; ++c) qv[c] = live ? q[(size_t)row * FC + c] : 0.0f;
+  } else {
+    for (int c = ln; c < f; c += 32) s_q[c] = live ? q[(size_t)row * f + c] : 0.0f;
+    __syncwarp();
+  }
   const float qqv = live ? qq[row] : 0.0f;
 
-  float bd[KMAX];
-  int bi[KMAX];
+  float ld[KL], qd[kSelQ];  // the list, the queue
+  int li[KL], qi[kSelQ];
 #pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = -1;
+  for (int r = 0; r < KL; ++r) {
+    ld[r] = INFINITY;
+    li[r] = kSelIdle;
   }
-  float worst = INFINITY;
-
-  for (int base = 0; base < dend; base += kNnTile) {
-    const int cnt = min(kNnTile, dend - base);
-    __syncthreads();
-    for (int e = threadIdx.x; e < cnt * f; e += blockDim.x) s_db[e] = db[(size_t)base * f + e];
-    for (int e = threadIdx.x; e < cnt; e += blockDim.x)
-      s_dd[e] = dbmask[base + e] ? dd[base + e] : INFINITY;
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float ddj = s_dd[j];
-      if (ddj == INFINITY) continue;
-      const float* v = s_db + j * f;
-      float cross = __fmul_rn(qv[0], v[0]);
 #pragma unroll
-      for (int c = 1; c < FMAX; ++c)
-        if (c < f) cross = fmaf(qv[c], v[c], cross);
-      flsq::topk_insert(bd, bi, k, worst, fmaxf(flsq::expand_d2(qqv, cross, ddj), 0.0f),
-                        base + j);
+  for (int r = 0; r < kSelQ; ++r) {
+    qd[r] = INFINITY;
+    qi[r] = kSelIdle;
+  }
+  int queued = 0;
+  float kd = INFINITY;  // the list's k-th pair
+  int ki = kSelIdle;
+  // the next tile's |v|^2, +inf where masked or out of range: loaded before
+  // a tile's search, stored to shared memory after it
+  float nxt[PER];
+  const int tiles = flsq::ceil_div(dend, ROWS);
+  if (tiles > 0) {
+    flsq::stage_tile<FC, ROWS, STRIDE, kSelThreads>(db, f, 0, dend, s_db);
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int r = tid + p * kSelThreads;
+      if (r < ROWS) s_dd[r] = r < dend && dbmask[r] != 0 ? dd[r] : INFINITY;
     }
   }
-  if (!live) return;
-  const bool qok = qmask[row] != 0;
+  flsq::cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int cur = t & 1;
+    const int base = t * ROWS;
+    const bool more = t + 1 < tiles;
+    if (more) {
+      flsq::stage_tile<FC, ROWS, STRIDE, kSelThreads>(db, f, base + ROWS, dend,
+                                                      s_db + (cur ^ 1) * F * STRIDE);
 #pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
+      for (int p = 0; p < PER; ++p) {
+        const int o = tid + p * kSelThreads, r = base + ROWS + o;
+        nxt[p] = o < ROWS && r < dend && dbmask[r] != 0 ? dd[r] : INFINITY;
+      }
+    }
+    flsq::cp_async_commit();  // empty when !more: the group count stays uniform
+    flsq::cp_async_wait_prior();
+    __syncthreads();
+
+    if (live) {
+      const float* sd = s_db + cur * F * STRIDE;
+      const float* sdd = s_dd + cur * ROWS;
+      const int rounds = flsq::ceil_div(min(ROWS, dend - base), 32);
+      for (int s = 0; s < rounds; ++s) {
+        const int j = s * 32 + ln;
+        const float ddj = sdd[j];
+        float cross;
+        if constexpr (FC > 0) {
+          cross = __fmul_rn(qv[0], sd[j]);
+#pragma unroll
+          for (int c = 1; c < FC; ++c) cross = fmaf(qv[c], sd[c * STRIDE + j], cross);
+        } else {
+          cross = __fmul_rn(s_q[0], sd[j]);
+          for (int c = 1; c < f; ++c) cross = fmaf(s_q[c], sd[c * STRIDE + j], cross);
+        }
+        const float d2 = fmaxf(flsq::expand_d2(qqv, cross, ddj), 0.0f);
+        const int idx = base + j;
+        if (ddj != INFINITY && d2 < INFINITY && flsq::lex_less(d2, idx, kd, ki)) {
+#pragma unroll
+          for (int r = kSelQ - 1; r > 0; --r) {
+            qd[r] = qd[r - 1];
+            qi[r] = qi[r - 1];
+          }
+          qd[0] = d2;
+          qi[0] = idx;
+          ++queued;
+        }
+        if (__any_sync(0xffffffffu, queued == kSelQ))
+          flsq::sel_flush<KL>(ld, li, qd, qi, queued, k, kd, ki);
+      }
+    }
+    if (more) {
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        const int r = tid + p * kSelThreads;
+        if (r < ROWS) s_dd[(cur ^ 1) * ROWS + r] = nxt[p];
+      }
+    }
+    __syncthreads();
+  }
+  if (live && __any_sync(0xffffffffu, queued > 0))
+    flsq::sel_flush<KL>(ld, li, qd, qi, queued, k, kd, ki);
+
+  if (row >= m) return;
+#pragma unroll
+  for (int r = 0; r < KL; ++r) {
+    const int s = 32 * r + ln;
     if (s < k) {
-      const bool ok = qok && bd[s] < INFINITY;
-      out_d[(size_t)row * k + s] = ok ? bd[s] : INFINITY;
-      out_i[(size_t)row * k + s] = ok ? bi[s] : -1;
+      const bool ok = live && ld[r] < INFINITY;
+      out_d[(size_t)row * k + s] = ok ? ld[r] : INFINITY;
+      out_i[(size_t)row * k + s] = ok ? li[r] : -1;
     }
   }
 }
 
-template <int FMAX>
+template <int FC, int KL>
+int launch_kw(const float* q, const float* qq, const uint8_t* qmask, const float* db,
+              const float* dd, const uint8_t* dbmask, const int* q_end, const int* db_end,
+              int b, int m, int n, int f, int k, float* out_d, int* out_i,
+              cudaStream_t stream) {
+  const size_t smem = sel_smem_bytes<FC>(f);
+  static size_t smem_set = 0;
+  if (smem > smem_set) {  // above 48 KB only after opting in
+    const int st = static_cast<int>(cudaFuncSetAttribute(
+        knnk_warp_kernel<FC, KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+    if (st != 0) return st;
+    smem_set = smem;
+  }
+  const dim3 grid(flsq::ceil_div(m, kSelWarps), b);
+  knnk_warp_kernel<FC, KL><<<grid, kSelThreads, smem, stream>>>(
+      q, qq, qmask, db, dd, dbmask, q_end, db_end, m, n, f, k, out_d, out_i);
+  return flsq::launch_status();
+}
+
+template <int FC>
 int launch_kn(const float* q, const float* qq, const uint8_t* qmask, const float* db,
               const float* dd, const uint8_t* dbmask, const int* q_end, const int* db_end,
               int b, int m, int n, int f, int k, float* out_d, int* out_i,
               cudaStream_t stream) {
-  const dim3 grid(flsq::ceil_div(m, kNnBlock), b);
-  const size_t smem = sizeof(float) * (size_t)kNnTile * (f + 1);
-  if (k <= 16) {
-    knnk_kernel<FMAX, 16><<<grid, kNnBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, q_end,
-                                                          db_end, m, n, f, k, out_d, out_i);
-  } else if (k <= 32) {
-    knnk_kernel<FMAX, 32><<<grid, kNnBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, q_end,
-                                                          db_end, m, n, f, k, out_d, out_i);
-  } else {
-    knnk_kernel<FMAX, 64><<<grid, kNnBlock, smem, stream>>>(q, qq, qmask, db, dd, dbmask, q_end,
-                                                          db_end, m, n, f, k, out_d, out_i);
-  }
-  return flsq::launch_status();
+  if (k <= 32)
+    return launch_kw<FC, 1>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
+                            out_i, stream);
+  return launch_kw<FC, 2>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
+                          out_i, stream);
 }
 
 }  // namespace
@@ -225,12 +350,12 @@ FLSQ_API int flsq_knn(const float* q, const float* qq, const uint8_t* qmask, con
     return launch_k1<0>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, splits,
                         part_d, part_i, out_d, out_i, s);
   }
-  if (f <= 4)
-    return launch_kn<4>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
+  if (f == 3)
+    return launch_kn<3>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
                         out_i, s);
-  if (f <= 36)
-    return launch_kn<36>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
+  if (f == 33)
+    return launch_kn<33>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
                          out_i, s);
-  return launch_kn<64>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
-                       out_i, s);
+  return launch_kn<0>(q, qq, qmask, db, dd, dbmask, q_end, db_end, b, m, n, f, k, out_d,
+                      out_i, s);
 }

@@ -1,8 +1,9 @@
-// The search body that K1 (knn.cu) and K2 (knn_banded.cu) share, so that
+// The search bodies that K1 (knn.cu) and K2 (knn_banded.cu) share, so that
 // the two cannot drift: the register-tiled k = 1 search of one query block
 // against a run of db tiles, the lexicographic (d2, idx) minimum, the split
-// of a db range over grid z, the merge of the split partials, and the
-// per-thread sorted insert of the k > 1 paths.
+// of a db range over grid z, the merge of the split partials, the staging of
+// db tiles, the warp-cooperative selection of K1's k > 1 path, and the
+// per-thread sorted insert of K2's k > 1 path.
 //
 // k = 1 tile body (nn_block).  A CTA of 256 threads owns kNnBlock = 64
 // query rows, staged once in shared memory transposed to [c][row].  It walks
@@ -87,17 +88,18 @@ __device__ __forceinline__ void nn_operands(const float* s_q, const float* s_db,
   va[7] = w.w;
 }
 
-// Async copies of the db rows base.. of a tile into s_db ([c][row]); rows
-// at or past row_end are zero.
-template <int FC>
-__device__ __forceinline__ void nn_stage(const float* __restrict__ db, int f, int base,
-                                         int row_end, float* s_db) {
+// Async copies of the db rows base.. of a tile of ROWS rows into s_db
+// ([c][row], STRIDE floats per c) by the THREADS threads of the CTA; rows at
+// or past row_end are zero.
+template <int FC, int ROWS, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ db, int f, int base,
+                                           int row_end, float* s_db) {
   const int F = FC > 0 ? FC : f;
-  const int rows = min(kNnTile, row_end - base);
+  const int rows = min(ROWS, row_end - base);
   const float* src = db + (size_t)base * F;
-  for (int e = threadIdx.x; e < kNnTile * F; e += kNnThreads) {
+  for (int e = threadIdx.x; e < ROWS * F; e += THREADS) {
     const int r = e / F, c = e - r * F;
-    float* dst = s_db + c * kStrideD + r;
+    float* dst = s_db + c * STRIDE + r;
     if (r < rows) {
       cp_async4(dst, src + e);
     } else {
@@ -149,7 +151,7 @@ __device__ __forceinline__ void nn_block(const float* __restrict__ q,
   float nxt_dd = 0.0f;
   bool nxt_ok = false;
   if (count > 0) {
-    nn_stage<FC>(db, f, tile_row(0), row_end, s_db);
+    stage_tile<FC, kNnTile, kStrideD, kNnThreads>(db, f, tile_row(0), row_end, s_db);
     const int row = tile_row(0) + tid;
     if (tid < kNnTile)
       s_dd[tid] = row < row_end && dbmask[row] != 0 ? dd[row] : INFINITY;
@@ -160,7 +162,8 @@ __device__ __forceinline__ void nn_block(const float* __restrict__ q,
     const bool more = t + 1 < count;
     if (more) {
       const int base = tile_row(t + 1);
-      nn_stage<FC>(db, f, base, row_end, s_db + (cur ^ 1) * F * kStrideD);
+      stage_tile<FC, kNnTile, kStrideD, kNnThreads>(db, f, base, row_end,
+                                                    s_db + (cur ^ 1) * F * kStrideD);
       const bool in = tid < kNnTile && base + tid < row_end;
       nxt_ok = in && dbmask[base + tid] != 0;
       nxt_dd = in ? dd[base + tid] : 0.0f;
@@ -303,9 +306,10 @@ static inline int launch_merge(const float* part_d, const int* part_i,
   return launch_status();
 }
 
-// k > 1: a candidate enters the sorted list only if strictly smaller than
-// the current k-th, and is bubbled in front of strictly larger entries
-// only, so equal distances keep db index order (rows visited ascending).
+// K2's k > 1 path (knn_banded.cu, one thread a query): a candidate enters
+// the sorted list only if strictly smaller than the current k-th, and is
+// bubbled in front of strictly larger entries only, so equal distances keep
+// db index order (rows visited ascending).
 template <int KMAX>
 __device__ __forceinline__ void topk_insert(float (&bd)[KMAX], int (&bi)[KMAX], int k,
                                             float& worst, float d2, int idx) {
@@ -328,6 +332,135 @@ __device__ __forceinline__ void topk_insert(float (&bd)[KMAX], int (&bi)[KMAX], 
 #pragma unroll
   for (int s = 0; s < KMAX; ++s)
     if (s == k - 1) worst = bd[s];
+}
+
+// --- K1's k > 1 path: warp-cooperative selection (WarpSelect) ---------------
+//
+// A warp owns one query.  Its sorted list of the smallest (d2, idx) pairs so
+// far is spread over the warp, KL registers a lane: element e = 32 r + lane
+// lives in register r of lane `lane`, and 32 KL >= k.  Each lane also keeps
+// a queue of kSelQ candidates that beat the list's k-th element when it
+// looked at them.  When any lane's queue is full the warp sorts the 32 kSelQ
+// queued pairs with a bitonic network (steps between lanes by
+// __shfl_xor_sync, steps between registers in place) and merges the 32 KL
+// smallest into the list: the elementwise minimum of the list and the
+// reversed queue holds the 32 KL smallest of both as a bitonic sequence,
+// which a bitonic merge sorts.  Every comparison is lexicographic on (d2,
+// idx); the pairs of one query are distinct, so they have one order, and the
+// list depends neither on the order of the walk nor on where the queues
+// flush.  An empty slot holds (inf, kSelIdle), after every candidate.
+constexpr int kSelQ = 4;                 // queue slots a lane
+constexpr int kSelIdle = 0x7fffffff;     // the index of an empty slot
+
+// (d, i) <- the other lane's pair where keep_min and the other is smaller,
+// or where !keep_min and it is not smaller: the two lanes of a step agree.
+__device__ __forceinline__ void sel_keep(float& d, int& i, float od, int oi, bool keep_min) {
+  if (lex_less(od, oi, d, i) == keep_min) {
+    d = od;
+    i = oi;
+  }
+}
+
+// Registers a and b (a < b in element order) in place: ascending puts the
+// smaller pair in a.
+__device__ __forceinline__ void sel_order(float& da, int& ia, float& db, int& ib,
+                                          bool descending) {
+  if (lex_less(db, ib, da, ia) != descending) {
+    const float td = da;
+    const int ti = ia;
+    da = db;
+    ia = ib;
+    db = td;
+    ib = ti;
+  }
+}
+
+// The bitonic steps of stride STRIDE, STRIDE / 2, .., 1 within blocks of
+// SIZE elements over the warp's 32 R pairs (element e = 32 r + lane): a
+// block whose first element has bit SIZE set runs descending.  Steps of 32
+// and more pair registers of one lane, shorter ones pair lanes.
+template <int R, int SIZE, int STRIDE>
+__device__ __forceinline__ void sel_steps(float (&d)[R], int (&i)[R], int lane) {
+  if constexpr (STRIDE >= 32) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = r ^ (STRIDE >> 5);
+      if (p > r) sel_order(d[r], i[r], d[p], i[p], ((r << 5) & SIZE) != 0);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float od = __shfl_xor_sync(0xffffffffu, d[r], STRIDE);
+      const int oi = __shfl_xor_sync(0xffffffffu, i[r], STRIDE);
+      const bool descending = (((r << 5) | lane) & SIZE) != 0;
+      sel_keep(d[r], i[r], od, oi, ((lane & STRIDE) == 0) != descending);
+    }
+  }
+  if constexpr (STRIDE > 1) sel_steps<R, SIZE, STRIDE / 2>(d, i, lane);
+}
+
+// Sort the warp's 32 R pairs ascending: bitonic blocks of SIZE, 2 SIZE, ..
+// 32 R (call with SIZE = 2).
+template <int R, int SIZE = 2>
+__device__ __forceinline__ void sel_sort(float (&d)[R], int (&i)[R], int lane) {
+  sel_steps<R, SIZE, SIZE / 2>(d, i, lane);
+  if constexpr (SIZE < 32 * R) sel_sort<R, SIZE * 2>(d, i, lane);
+}
+
+// The list (KL registers, sorted) <- the 32 KL smallest of the list and the
+// queue (kSelQ registers, any order; left sorted).  The queue's element
+// 32 KL - 1 - e sits in register KL - 1 - r of lane 31 - lane.
+template <int KL>
+__device__ __forceinline__ void sel_merge(float (&ld)[KL], int (&li)[KL], float (&qd)[kSelQ],
+                                          int (&qi)[kSelQ]) {
+  static_assert(KL <= kSelQ, "the queue must hold a list's worth");
+  const int lane = threadIdx.x & 31;
+  sel_sort<kSelQ>(qd, qi, lane);
+#pragma unroll
+  for (int r = 0; r < KL; ++r) {
+    const float od = __shfl_sync(0xffffffffu, qd[KL - 1 - r], 31 - lane);
+    const int oi = __shfl_sync(0xffffffffu, qi[KL - 1 - r], 31 - lane);
+    if (lex_less(od, oi, ld[r], li[r])) {
+      ld[r] = od;
+      li[r] = oi;
+    }
+  }
+  // a bitonic sequence of 32 KL: one ascending block
+  sel_steps<KL, 32 * KL, 16 * KL>(ld, li, lane);
+}
+
+// Element e of the list (the same on every lane): (d, i) of register e / 32
+// of lane e % 32.
+template <int KL>
+__device__ __forceinline__ void sel_element(const float (&ld)[KL], const int (&li)[KL], int e,
+                                            float& d, int& i) {
+  float sd = ld[0];
+  int si = li[0];
+#pragma unroll
+  for (int r = 1; r < KL; ++r) {
+    if ((e >> 5) == r) {
+      sd = ld[r];
+      si = li[r];
+    }
+  }
+  d = __shfl_sync(0xffffffffu, sd, e & 31);
+  i = __shfl_sync(0xffffffffu, si, e & 31);
+}
+
+// Merge the queue into the list, empty the queue and take the list's k-th
+// pair as the bar a candidate must beat.
+template <int KL>
+__device__ __forceinline__ void sel_flush(float (&ld)[KL], int (&li)[KL], float (&qd)[kSelQ],
+                                          int (&qi)[kSelQ], int& queued, int k, float& kd,
+                                          int& ki) {
+  sel_merge<KL>(ld, li, qd, qi);
+#pragma unroll
+  for (int r = 0; r < kSelQ; ++r) {
+    qd[r] = INFINITY;
+    qi[r] = kSelIdle;
+  }
+  queued = 0;
+  sel_element<KL>(ld, li, k - 1, kd, ki);
 }
 
 }  // namespace flsq

@@ -13,6 +13,7 @@ import torch
 from fast_lio_sam_qn_tpu.ops import knn as jknn
 from fast_lio_sam_qn_tpu.ops import pallas_knn
 from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
+from fast_lio_sam_qn_tpu_torch.tools import profile_knn
 
 torch.set_num_threads(1)
 
@@ -353,3 +354,124 @@ def test_brute_knn_holed_masks_match_xla(k):
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=2e-3, atol=1e-5)
     assert not bool(got[2][150:].any())
+
+
+# ---------------------------------------------------------------------------
+# K1 at k > 1: the numpy model of the warp-cooperative selection
+# (tools/profile_knn.py warp_select, step for step csrc/knn.cu
+# knnk_warp_kernel over csrc/knn_tile.cuh sel_*) against brute_knn
+# ---------------------------------------------------------------------------
+
+def _warp_select_knn(q, qm, db, dm, k):
+    """The model over every query: (d2 (M, k), idx (M, k), flushes)."""
+    f = q.shape[1]
+    d2 = knn._dist2_tile(torch.from_numpy(q), torch.from_numpy(db)).numpy()
+    d2 = np.where(dm[None, :], d2, np.float32(np.inf))
+    dend = int(knn_cuda.lane_extents(torch.from_numpy(dm)[None])[0])
+    out_d = np.full((len(q), k), np.inf, np.float32)
+    out_i = np.full((len(q), k), -1, np.int64)
+    flushes = 0
+    for r in np.nonzero(qm)[0]:
+        out_d[r], out_i[r], fl = profile_knn.warp_select(
+            d2[r], dend, k, profile_knn.sel_rows(f))
+        flushes += fl
+    return out_d, out_i, flushes
+
+
+def _tied_clouds(rng, m, n, f, tail):
+    """Small-integer clouds (exact d2: equal distances abound) whose db
+    repeats a point on both sides of every 32-row edge (a lane stride, so
+    every tile edge) and at rows r, r + 257 (further apart than a queue
+    flush of 4 rows a lane), a query on each; the last ``tail`` db rows
+    masked, so the extent is off every tile."""
+    q = rng.integers(-2, 3, (m, f)).astype(np.float32)
+    db = rng.integers(-2, 3, (n, f)).astype(np.float32)
+    qm, dm = rng.random(m) > 0.2, rng.random(n) > 0.2
+    dm[n - tail:] = False
+    pairs = [(e - 1, e) for e in range(32, n - tail, 32)]
+    pairs += [(r, r + 257) for r in range(40, n - tail - 257, 150)
+              if r % 32 not in (0, 31) and (r + 257) % 32 not in (0, 31)]
+    for j, (a, b) in enumerate(pairs):
+        db[b] = db[a]
+        dm[[a, b]] = True
+        q[j % m] = db[a]
+        qm[j % m] = True
+    return q, qm, db, dm
+
+
+@pytest.mark.parametrize("f,k", [(3, 2), (3, 15), (3, 48), (3, 64),
+                                 (33, 17), (33, 33), (33, 63),
+                                 (64, 16), (64, 31), (64, 64)])
+def test_warp_select_model_equals_brute(f, k):
+    """The k > 1 kernel's selection, modelled step for step, returns
+    brute_knn's result bit for bit on clouds full of exact ties (on lane
+    stride and tile edges, across queue flushes), with the db extent off
+    every tile and some valid queries whose neighbours all tie."""
+    rng = np.random.default_rng(100 * f + k)
+    q, qm, db, dm = _tied_clouds(rng, 24, 700, f, 45)
+    d, i, flushes = _warp_select_knn(q, qm, db, dm, k)
+    want_d, want_i, _ = knn.brute_knn(*map(torch.from_numpy, (q, qm, db, dm)),
+                                      k)
+    np.testing.assert_array_equal(d.view(np.int32),
+                                  want_d.numpy().view(np.int32))
+    np.testing.assert_array_equal(i, want_i.numpy())
+    assert flushes >= int(qm.sum())
+
+
+@pytest.mark.parametrize("k", [2, 33, 64])
+def test_warp_select_model_fewer_rows_than_k(k):
+    """A db with fewer valid rows than k (and one with none): the model
+    fills the tail with (inf, -1), as brute_knn does."""
+    rng = np.random.default_rng(k)
+    q, qm, db, dm = _tied_clouds(rng, 10, 300, 3, 20)
+    few = np.zeros_like(dm)
+    few[rng.choice(280, 1 if k == 2 else 20, replace=False)] = True
+    for mask in (few, np.zeros_like(dm)):
+        d, i, _ = _warp_select_knn(q, qm, db, mask, k)
+        want_d, want_i, _ = knn.brute_knn(
+            *map(torch.from_numpy, (q, qm, db, mask)), k)
+        np.testing.assert_array_equal(d, want_d.numpy())
+        np.testing.assert_array_equal(i, want_i.numpy())
+
+
+@pytest.mark.parametrize("f,k", [(3, 2), (3, 33), (3, 63), (33, 2),
+                                 (33, 33), (33, 63)])
+def test_plain_matches_knn_pallas_with_ties(f, k):
+    """K1's plain version against the JAX package's knn_pallas (its CPU
+    path) on tied small-integer clouds: every distance exact, so d2 bits
+    and indices (ties to the lower db index) equal."""
+    rng = np.random.default_rng(7 * f + k)
+    q, qm, db, dm = _tied_clouds(rng, 60, 500, f, 30)
+    want = pallas_knn.knn_pallas(*map(jnp.asarray, (q, qm, db, dm)), k)
+    got = knn_cuda.knn(*map(torch.from_numpy, (q, qm, db, dm)), k)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+_BBOX = "_ZN4flsq16tile_bbox_kernelILi32EEEvPKfPKhPKiiiPf"
+_WARP = ("_ZN38_GLOBAL__N__51bbeb45_6_knn_cu_flsq_knn16knnk_warp_kernelILi3ELi2"
+         "EEEvPKfS2_PKhS2_S2_S4_PKiS6_iiiiPfPi")
+PTXAS_LOG = "".join(
+    f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+    f"ptxas info    : Function properties for {name}\n"
+    f"    {frame}\n"
+    f"ptxas info    : Used {regs}\n"
+    "ptxas info    : Compile time = 18.892 ms\n"
+    for name, frame, regs in (
+        (_BBOX, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+         "loads", "30 registers, used 0 barriers"),
+        (_WARP, "16 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+         "loads", "76 registers, used 1 barriers, 400 bytes cmem[0]")))
+
+
+def test_ptxas_entries_parse_a_build_log():
+    """tools/profile_knn.ptxas_entries: one entry per compiled kernel with
+    its registers, stack and spills (chip_smoke.py logs them by name)."""
+    got = profile_knn.ptxas_entries(PTXAS_LOG)
+    assert [e["registers"] for e in got] == [30, 76]
+    assert [(e["stack"], e["spill_stores"], e["spill_loads"])
+            for e in got] == [(0, 0, 0), (16, 8, 4)]
+    assert "tile_bbox_kernel" in got[0]["name"]
+    assert "knnk_warp_kernel" in got[1]["name"]
+    assert profile_knn.ptxas_entries("nvcc: no ptxas lines\n") == []

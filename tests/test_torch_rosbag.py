@@ -8,6 +8,8 @@ Odometry)."""
 import filecmp
 import os
 import struct
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from fast_lio_sam_qn_tpu.runtime import rosbag as jrosbag
 from fast_lio_sam_qn_tpu.tools import bag_convert as jbag_convert
 from fast_lio_sam_qn_tpu.tools import kitti_convert as jkitti_convert
 from fast_lio_sam_qn_tpu.tools import mulran_convert as jmulran_convert
+from fast_lio_sam_qn_tpu.tools import profile_ingest as jprofile_ingest
 from fast_lio_sam_qn_tpu.utils import sweep as jsweep
 from fast_lio_sam_qn_tpu_torch.runtime import rosbag
 from fast_lio_sam_qn_tpu_torch.tools import (bag_convert, datasets,
@@ -317,8 +320,47 @@ def test_load_rel_times_alike(tmp_path, recording):
 
 @pytest.mark.parametrize("compression", ["none", "bz2", "lz4"])
 @pytest.mark.parametrize("fmt", ["pointcloud2", "livox"])
-def test_ingest_sustains_realtime(fmt, compression):
+def test_ingest_sustains_realtime(tmp_path, fmt, compression):
     """The --bag host path keeps well above the 10 Hz sensor rate (the JAX
-    package's loose 3x band, 30 scans/s, here at 8,192 points)."""
-    r = profile_ingest.measure(fmt, compression, 30, 8192, 4096)
-    assert r["scans"] == 30 and r["scans_per_s"] > 30.0, r
+    package's loose 3x band, 30 scans/s, here at 8,192 points), timed by
+    the process's CPU clock, the best of 3 passes over one file: the load
+    of a parallel test run on the host does not count.  On bz2 chunks,
+    whose decompression (the standard library's) takes nearly all of the
+    time, the port's reader also keeps at least 0.8x the JAX package's
+    rate on the same file: the two read it at once in two threads that
+    share one CPU, each timed by its own CPU clock, so both meet the same
+    load."""
+    path = str(tmp_path / f"{fmt}-{compression}.bag")
+    profile_ingest.build_fixture_bag(path, fmt, 30, 8192,
+                                     compression=compression)
+    port = [profile_ingest.ingest(path, 4096, clock=time.process_time)
+            for _ in range(3)]
+    assert all(n == 30 for n, _ in port), port
+    rate = 30 / min(dt for _, dt in port)
+    assert rate > 30.0, (rate, port)
+    if compression != "bz2":
+        return
+
+    cpu = min(os.sched_getaffinity(0))
+
+    def on_one_cpu(key, ingest, out):
+        os.sched_setaffinity(0, {cpu})   # this thread only
+        t0 = time.thread_time()
+        n, _ = ingest(path, 4096)
+        out[key] = (n, time.thread_time() - t0)
+
+    pairs = []
+    for _ in range(3):
+        out = {}
+        readers = [threading.Thread(target=on_one_cpu, args=(key, fn, out))
+                   for key, fn in (("port", profile_ingest.ingest),
+                                   ("jax", jprofile_ingest.ingest))]
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join()
+        pairs.append((out["port"], out["jax"]))
+    assert all(n == 30 for pair in pairs for n, _ in pair), pairs
+    port_rate = 30 / min(p[1] for p, _ in pairs)
+    jax_rate = 30 / min(j[1] for _, j in pairs)
+    assert port_rate >= 0.8 * jax_rate, (port_rate, jax_rate, pairs)
