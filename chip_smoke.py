@@ -10,7 +10,9 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
     python3 chip_smoke.py --trace-fpfh-order   # phase 6 on three FPFH
                                                # row orders, loop events
 
-Phases, in order; any failure raises and the script exits non-zero:
+Every log line starts with the seconds since the script started, so the
+log gives each phase's time.  Phases, in order; any failure raises and the
+script exits non-zero:
 
 1. the card: a CUDA device is required (there is no CPU fallback); prints
    ``nvidia-smi``'s name and power limit;
@@ -172,8 +174,13 @@ PIPE_SCANS, PIPE_POINTS = 160, 16384
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on stdout after the seconds since the script started, so
+    that the log gives each phase's time."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -767,9 +774,16 @@ def kernel_parity(store, src_cap, dst_cap, errs, pair=(1, 0), where=""):
 def jittered_lanes(p, m, lanes, seed):
     """``lanes`` copies of one padded cloud: lane i moves every valid point
     by N(0, (0.01 i m)^2) per axis and drops 10 i % of them."""
-    from fast_lio_sam_qn_tpu_torch.tools import profile_knn
+    import torch
 
-    return profile_knn.jittered_lanes(p, m, lanes, seed)
+    g = torch.Generator(device=p.device).manual_seed(seed)
+    ps, ms = [], []
+    for i in range(lanes):
+        noise = torch.randn(p.shape, generator=g, device=p.device) * 0.01 * i
+        keep = torch.rand(m.shape, generator=g, device=p.device) >= 0.1 * i
+        ps.append(torch.where(m[:, None], p + noise, p))
+        ms.append(m & keep)
+    return torch.stack(ps).contiguous(), torch.stack(ms)
 
 
 def same_lanes(name, batched, single_fn):
@@ -2588,7 +2602,6 @@ def main() -> int:
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
     from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
-    from fast_lio_sam_qn_tpu_torch.tools import profile_knn
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -2601,7 +2614,7 @@ def main() -> int:
     kernels.load_library()
     log(f"kernels built in {nvcc_s:.1f} s (nvcc), ready in "
         f"{time.perf_counter() - t0:.1f} s: {path.name}")
-    for e in profile_knn.ptxas_entries(path.with_suffix(".log").read_text()):
+    for e in kernels.ptxas_entries(path.with_suffix(".log").read_text()):
         log(f"  ptxas {e['name']}: {e['registers']} registers, {e['stack']} B "
             f"stack, {e['spill_stores']} / {e['spill_loads']} B spill stores "
             f"/ loads")
@@ -2822,6 +2835,7 @@ def main() -> int:
     longrun_phase(dev, card)
     log(f"longrun: {time.perf_counter() - t0:.1f} s")
 
+    log("every phase passed")
     knn_src = "fast_lio_sam_qn_tpu/ops/pallas_knn.py"
     fs_src = "fast_lio_sam_qn_tpu/ops/fpfh_stream.py"
     table = [

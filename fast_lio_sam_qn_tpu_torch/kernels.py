@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -91,6 +92,41 @@ def build() -> tuple[Path, float]:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, path)
     return path, seconds
+
+
+def ptxas_entries(text: str) -> list[dict]:
+    """Each kernel entry of the build log (``nvcc -Xptxas -v``): its name
+    (demangled by ``c++filt`` where the host has it), registers, stack
+    frame and spill bytes."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"name": m.group(1), "stack": 0, "spill_stores": 0,
+                   "spill_loads": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(e["name"] for e in out),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = []
+    if len(names) == len(out):
+        for e, n in zip(out, names):
+            e["name"] = n
+    return out
 
 
 @functools.cache

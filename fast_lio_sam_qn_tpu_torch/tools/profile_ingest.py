@@ -81,15 +81,13 @@ def ingest(path: str, cap: int, timestamp_unit: int = -1,
 
 
 def measure(fmt: str, compression: str, n_scans: int, n_points: int,
-            cap: int, clock=time.perf_counter, passes: int = 1) -> dict:
-    """One fixture bag built and ingested ``passes`` times: scans, bytes,
-    the fastest pass's seconds (by ``clock``, as ``ingest``) and rates."""
+            cap: int) -> dict:
+    """One fixture bag built and ingested: scans, bytes, seconds, rates."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, f"{fmt}-{compression}.bag")
         size = build_fixture_bag(path, fmt, n_scans, n_points,
                                  compression=compression)
-        n, dt = min((ingest(path, cap, clock=clock) for _ in range(passes)),
-                    key=lambda r: r[1])
+        n, dt = ingest(path, cap)
     if n != n_scans:
         raise AssertionError(f"{fmt} {compression}: {n} of {n_scans} scans")
     return {"format": fmt, "compression": compression, "scans": n,

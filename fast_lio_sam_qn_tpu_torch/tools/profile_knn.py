@@ -1,25 +1,25 @@
-"""K1 / K1b at 1 < k <= 64 on the kNN FPFH backend's shapes, timed on the
-card for the package of one checkout.
+"""K1 / K1b at 1 < k <= 64 on the kNN FPFH backend's shapes, for the
+package of one checkout, through that checkout's own ``chip_smoke.py``.
 
 Usage (on a machine with a CUDA card):
 
     python3 fast_lio_sam_qn_tpu_torch/tools/profile_knn.py [--tree DIR] \\
-        [--reps N] [--out FILE]
+        [--out FILE]
 
-Imports ``fast_lio_sam_qn_tpu_torch`` from the checkout ``DIR`` (default:
-the one that holds this script), builds its kernels and times the cases of
-``chip_smoke.py``'s ``big_k_timings``: K1 at k = 15 and 48 on the benchmark
-target voxelized into the pipeline's 32,768 rows (its self-search), K1b at
-k = 15 and 48 on 4 jittered lanes of that cloud, and K1 at k = 64 on the
-kNN FPFH descriptors (F = 33, source against target).  For each case: the
-wrapper's call (CUDA events, median of N calls after a warm-up), the
-kernels' device time per call (``torch.profiler``, kernels whose name holds
-"knn"), and a digest of the outputs, so that two checkouts that compute the
-same bits print the same digests; and the flushes a query that the k > 1
-kernel's walk makes, counted by its numpy model (``warp_select``) on up to
-FLUSH_SAMPLE queries of the case.  Also prints the registers and spills
-that ptxas reports for each K1 entry.  Prints the card, then one JSON line
-(also written to FILE when given).
+Puts the checkout ``DIR`` (default: the one that holds this script) first
+on the import path, builds its kernels and runs its ``chip_smoke.py``'s
+``knn_fpfh`` (the kNN backend's checks on the card, which also make the
+inputs) and ``big_k_timings`` (K1 at k = 15 / 48 on the benchmark target
+voxelized into the pipeline's 32,768 rows, its self-search; K1b at k = 15 /
+48 on 4 jittered lanes of it; K1 at k = 64, F = 33 on the kNN FPFH
+descriptors; call and device ms against the plain version, the bound and
+``cdist`` + ``topk``).  Adds, for each case, a digest of the kernel's
+outputs, so that two checkouts that compute the same bits print the same
+digests, and the flushes a query that the k > 1 kernel's walk makes,
+counted by its numpy model (``warp_select``) on up to FLUSH_SAMPLE queries.
+Run it for the parent and the change in turns in one session to compare
+them on one card.  Prints the card, then one JSON line (also appended to
+FILE when given).
 """
 from __future__ import annotations
 
@@ -27,49 +27,11 @@ import argparse
 import hashlib
 import json
 import os
-import re
-import subprocess
 import sys
 
 import numpy as np
 
-LANES = 4   # the pipeline's loop_batch
 FLUSH_SAMPLE = 128   # queries a case whose flushes the model counts
-
-
-def ptxas_entries(text: str) -> list[dict]:
-    """Each kernel entry of an ``nvcc -Xptxas -v`` log: its name (demangled
-    by ``c++filt`` where the host has it), registers, stack frame and spill
-    bytes."""
-    out, cur = [], None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            cur = {"name": m.group(1), "stack": 0, "spill_stores": 0,
-                   "spill_loads": 0}
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                       spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            out.append(cur)
-            cur = None
-    try:
-        names = subprocess.run(
-            ["c++filt"], input="\n".join(e["name"] for e in out),
-            capture_output=True, text=True, check=True).stdout.splitlines()
-    except (OSError, subprocess.CalledProcessError):
-        names = []
-    if len(names) == len(out):
-        for e, n in zip(out, names):
-            e["name"] = n
-    return out
 
 
 def _digest(outs) -> str:
@@ -79,62 +41,14 @@ def _digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def _cuda_ms(fn, reps):
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _device_ms(fn, reps):
-    """Device time per call in kernels whose name holds "knn"; None where
-    the profiler recorded none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if "knn" in e.key)
-    return us / reps / 1e3 if us > 0 else None
-
-
-def jittered_lanes(p, m, lanes, seed):
-    """``lanes`` copies of one padded cloud: lane i moves every valid point
-    by N(0, (0.01 i m)^2) per axis and drops 10 i % of them (as
-    ``chip_smoke.jittered_lanes``)."""
-    import torch
-
-    g = torch.Generator(device=p.device).manual_seed(seed)
-    ps, ms = [], []
-    for i in range(lanes):
-        noise = torch.randn(p.shape, generator=g, device=p.device) * 0.01 * i
-        keep = torch.rand(m.shape, generator=g, device=p.device) >= 0.1 * i
-        ps.append(torch.where(m[:, None], p + noise, p))
-        ms.append(m & keep)
-    return torch.stack(ps).contiguous(), torch.stack(ms)
-
-
 # ---------------------------------------------------------------------------
 # The k > 1 kernel's selection as a numpy model, step for step csrc/knn.cu
 # knnk_warp_kernel over csrc/knn_tile.cuh sel_*: one warp a query, lanes
 # striding over db tiles, a queue of SEL_Q a lane, bitonic sort and merge
-# with the same lane and register layout (tests/test_torch_knn.py holds it
-# to brute_knn bit for bit; main() counts its flushes)
+# with the same lane and register layout.  main() counts its flushes;
+# tests/test_torch_knn.py holds the algorithm to brute_knn bit for bit.
+# Nothing ties this copy to the CUDA source: chip_smoke.py's kNN edge
+# cases are the kernel's own check
 # ---------------------------------------------------------------------------
 
 SEL_Q = 4                 # knn_tile.cuh kSelQ
@@ -251,63 +165,49 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
-    ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out")
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.tree))
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
     import torch
 
     if not torch.cuda.is_available():
         print("profile_knn: no CUDA device", file=sys.stderr)
         return 1
+    import chip_smoke as cs
     from fast_lio_sam_qn_tpu_torch import kernels
-    from fast_lio_sam_qn_tpu_torch.models.loop_closure import _single_frame
-    from fast_lio_sam_qn_tpu_torch.ops import fpfh, knn, knn_cuda
+    from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
     from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
-    path, nvcc_s = kernels.build()
+    card = cs.card_line()
+    _, nvcc_s = kernels.build()
     kernels.load_library()
-    print(f"package {os.path.dirname(os.path.dirname(knn_cuda.__file__))}; "
-          f"kernels built in {nvcc_s:.1f} s", flush=True)
-    for e in ptxas_entries(path.with_suffix(".log").read_text()):
-        if "knn" in e["name"] and "banded" not in e["name"]:
-            print(f"ptxas {e['name']}: {e['registers']} registers, "
-                  f"{e['stack']} B stack, {e['spill_stores']} / "
-                  f"{e['spill_loads']} B spill stores / loads", flush=True)
+    print(f"package {os.path.dirname(os.path.dirname(knn_cuda.__file__))}, "
+          f"chip_smoke {cs.__file__}; kernels built in {nvcc_s:.1f} s",
+          flush=True)
     dev = torch.device("cuda", 0)
-    store, _ = bp.build_store(dev)
-    dp, dm = _single_frame(store, 0, bp.PIPE_DST_CAP, 0.3)
-    sp, sm = _single_frame(store, 1, bp.PIPE_SRC_CAP, 0.3)
-    P, M = jittered_lanes(dp, dm, LANES, 5)
-    vp = store.poses_corrected[:2, :3, 3]
-    desc_s, val_s = fpfh.fpfh(sp, sm, 0.9, 1.5, viewpoint=vp[1])
-    desc_d, val_d = fpfh.fpfh(dp, dm, 0.9, 1.5, viewpoint=vp[0])
-    cases = {
-        "knn_k15": (knn_cuda.knn, (dp, dm, dp, dm), 15),
-        "knn_k48": (knn_cuda.knn, (dp, dm, dp, dm), 48),
-        "knn_b_k15": (knn_cuda.knn_batched, (P, M, P, M), 15),
-        "knn_b_k48": (knn_cuda.knn_batched, (P, M, P, M), 48),
-        "knn_k64_f33": (knn_cuda.knn, (desc_s, val_s, desc_d, val_d), 64),
-    }
-    result = {"card": card, "tree": os.path.abspath(args.tree), "cases": {}}
-    for name, (fn, a, k) in cases.items():
-        def call(fn=fn, a=a, k=k):
-            return fn(*a, k)
-        digest = _digest(call()[:2])
-        ms = _cuda_ms(call, args.reps)
-        dms = _device_ms(call, args.reps)
-        flushes = model_flushes(*a, k, knn._dist2_tile)
-        result["cases"][name] = {
-            "shape": [list(a[0].shape), list(a[2].shape)], "k": k,
-            "valid_queries": int(a[1].sum()), "call_ms": ms,
-            "device_ms": dms, "digest": digest, "model_flushes": flushes}
-        print(f"{name}: call {ms:.4f} ms, device "
-              f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
-              f"digest {digest}, {flushes:.2f} flushes a query (model) "
-              f"[{card}]", flush=True)
+    store, drift = bp.build_store(dev)
+    errs = {k: 0.0 for k in cs.launches_now()}
+    kin = cs.knn_fpfh(dev, card, store, drift, errs)[2]
+    ms, library, bounds = cs.big_k_timings(kin, card)
+    cases = {key: ("lanes" if base == "knn_b" else "self", k)
+             for key, (base, k) in cs.BY_K.items()}
+    cases["knn_k64_f33"] = ("desc", 64)
+    result = {"card": card, "tree": tree, "cases": {}}
+    for key, (src, k) in cases.items():
+        a = kin[src]
+        fn = knn_cuda.knn_batched if src == "lanes" else knn_cuda.knn
+        row = {"shape": [list(a[0].shape), list(a[2].shape)], "k": k,
+               "valid_queries": int(a[1].sum()),
+               "digest": _digest(fn(*a, k)[:2]),
+               "model_flushes": model_flushes(*a, k, knn._dist2_tile)}
+        if key in ms:
+            row.update(call_ms=ms[key][0], plain_ms=ms[key][1],
+                       device_ms=ms[key][2], library_ms=library[key],
+                       bound_ms=bounds[key][0])
+        result["cases"][key] = row
+        print(f"{key}: digest {row['digest']}, {row['model_flushes']:.2f} "
+              f"flushes a query (model)", flush=True)
         torch.cuda.empty_cache()
     print(card)
     line = json.dumps(result)

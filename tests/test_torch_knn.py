@@ -12,6 +12,7 @@ import torch
 
 from fast_lio_sam_qn_tpu.ops import knn as jknn
 from fast_lio_sam_qn_tpu.ops import pallas_knn
+from fast_lio_sam_qn_tpu_torch import kernels
 from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
 from fast_lio_sam_qn_tpu_torch.tools import profile_knn
 
@@ -359,7 +360,9 @@ def test_brute_knn_holed_masks_match_xla(k):
 # ---------------------------------------------------------------------------
 # K1 at k > 1: the numpy model of the warp-cooperative selection
 # (tools/profile_knn.py warp_select, step for step csrc/knn.cu
-# knnk_warp_kernel over csrc/knn_tile.cuh sel_*) against brute_knn
+# knnk_warp_kernel over csrc/knn_tile.cuh sel_*) against brute_knn.  These
+# tests hold the algorithm, not the kernel: nothing ties the model to the
+# CUDA source, and chip_smoke.py's kNN edge cases are the kernel's check
 # ---------------------------------------------------------------------------
 
 def _warp_select_knn(q, qm, db, dm, k):
@@ -403,7 +406,8 @@ def _tied_clouds(rng, m, n, f, tail):
                                  (33, 17), (33, 33), (33, 63),
                                  (64, 16), (64, 31), (64, 64)])
 def test_warp_select_model_equals_brute(f, k):
-    """The k > 1 kernel's selection, modelled step for step, returns
+    """The k > 1 kernel's selection, modelled step for step (the
+    algorithm; the kernel itself is checked on the card), returns
     brute_knn's result bit for bit on clouds full of exact ties (on lane
     stride and tile edges, across queue flushes), with the db extent off
     every tile and some valid queries whose neighbours all tie."""
@@ -466,12 +470,12 @@ PTXAS_LOG = "".join(
 
 
 def test_ptxas_entries_parse_a_build_log():
-    """tools/profile_knn.ptxas_entries: one entry per compiled kernel with
-    its registers, stack and spills (chip_smoke.py logs them by name)."""
-    got = profile_knn.ptxas_entries(PTXAS_LOG)
+    """kernels.ptxas_entries: one entry per compiled kernel with its
+    registers, stack and spills (chip_smoke.py logs them by name)."""
+    got = kernels.ptxas_entries(PTXAS_LOG)
     assert [e["registers"] for e in got] == [30, 76]
     assert [(e["stack"], e["spill_stores"], e["spill_loads"])
             for e in got] == [(0, 0, 0), (16, 8, 4)]
     assert "tile_bbox_kernel" in got[0]["name"]
     assert "knnk_warp_kernel" in got[1]["name"]
-    assert profile_knn.ptxas_entries("nvcc: no ptxas lines\n") == []
+    assert kernels.ptxas_entries("nvcc: no ptxas lines\n") == []
