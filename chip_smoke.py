@@ -1,8 +1,8 @@
 """Drive the PyTorch port's loop-closure attempt (both FPFH backends), its
 pose-graph pipeline, its per-scan LIO (both map backends, the extrinsic
 co-estimated), its CLI (``--sim`` and the dataset modes ``--kitti``,
-``--scans/--poses``, ``--bag``, checkpoint / resume) and the 1,600-scan
-long run on one CUDA card.
+``--scans/--poses``, ``--bag``, checkpoint / resume), the 1,600-scan
+long run and the device mesh (``parallel/``) on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -147,7 +147,22 @@ script exits non-zero:
    commits, ATE 0.1274 m +- 30 %, odometry ATE < 0.05 m, the keyframe
    store 128 -> >= 512, the loop factors 8 -> >= 32); ms per scan, LIO
    and feed spans, peak memory;
-23. prints the kernel table as one JSON line (time, launches on the main
+23. mesh ws1: each program of ``parallel/spmd.py`` on a one-rank NCCL
+   mesh in this process, through the code it runs at any world size,
+   against its single-device counterpart, counters reset just before and
+   read just after each: ``sharded_gicp_align`` on the bench pair at the
+   bench caps (K1 at k = 1 on the shard; within 1e-4 of the single GN),
+   ``batched_gicp_align`` (K1b at k = 15, K2b) and the sharded
+   loop-closure batch (K1b, K2b, K3b-K5b) at the pipeline's caps on
+   ``loop_batch`` lanes (bit for bit), ``pgo_optimize_full`` at full
+   capacity, 2 and 5 GN steps (within 1e-4 of ``pgo.optimize``, a repeat
+   bit for bit); each timed beside its counterpart (CUDA events);
+24. mesh ws2: the pipeline run of 6 over 2 ranks that share the card over
+   gloo (spawned processes; ``pgo_shard_min_factors`` lowered to 16):
+   ``check_pipeline``'s gates with 12-13 commits, both ranks' trajectory
+   and event digests equal, the sharded solve engaged, every batched
+   kernel launched; the run's time and its host-staged collectives';
+25. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
    result line.  The LIO launches none of K1-K5 (its reference has no
    Pallas kernel).  K3, K4 and K5 skip what the radius prune rules out, so
@@ -1026,11 +1041,12 @@ def pipeline_config():
     return cfg
 
 
-def pipeline_run(dev):
+def pipeline_run(dev, cfg=None, mesh=None):
     """tests/test_pipeline.py's recipe at full width: a 26 m room, a 7 m
     circle lapped every 20 s, scans at 5 Hz, odometry drifting by a
-    seeded random twist per scan.  Returns (pipeline, ground truth at the
-    keyframes, drifted-odometry ATE, batched ticks, feed timings)."""
+    seeded random twist per scan; ``pipeline_config()`` unless ``cfg`` is
+    given, over ``mesh`` where given.  Returns (pipeline, ground truth at
+    the keyframes, drifted-odometry ATE, batched ticks, feed timings)."""
     import torch
 
     from fast_lio_sam_qn_tpu_torch.models.pipeline import FastLioSamQnPipeline
@@ -1041,14 +1057,15 @@ def pipeline_run(dev):
     world = sim.World.room(size=26.0, height=5.0, n_boxes=10, seed=3)
     traj = sim.Trajectory.loop(radius=7.0, period=20.0)
     rng = np.random.default_rng(0)
-    pipe = FastLioSamQnPipeline(pipeline_config(), Profiler(), device=dev)
+    pipe = FastLioSamQnPipeline(cfg or pipeline_config(), Profiler(),
+                                device=dev, mesh=mesh)
     lc = pipe.loop_closure
     batch_fn = lc.perform_loop_closure_batch
     ticks = []
 
-    def traced(store, q, c):
+    def traced(store, q, c, **kw):
         before = launches_now()
-        out = batch_fn(store, q, c)
+        out = batch_fn(store, q, c, **kw)
         torch.cuda.synchronize()
         after = launches_now()
         ticks.append((list(q), list(c),
@@ -2114,9 +2131,9 @@ def cli_parity(dev, card, errs, d, stamps, truth, tmp):
         json.dump(REFERENCE_CONFIG, f)
     ticks, batch_fn = [], LoopClosure.perform_loop_closure_batch
 
-    def traced(self, store, q, c):
+    def traced(self, store, q, c, **kw):
         ticks.append((list(q), list(c)))
-        return batch_fn(self, store, q, c)
+        return batch_fn(self, store, q, c, **kw)
 
     reset_launches()
     LoopClosure.perform_loop_closure_batch = traced
@@ -2591,6 +2608,245 @@ def longrun_phase(dev, card, scans=LONGRUN_SCANS):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the device mesh (parallel/): world size 1 over NCCL in this process, then
+# the pipeline over 2 ranks that share the card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_SHARD_MIN = 16   # pgo_shard_min_factors of the 2-rank pipeline run
+MESH_RANK_TIMEOUT_S = 600.0
+
+
+def _pose_table(g):
+    return g.poses[:int(g.num_nodes)]
+
+
+def mesh_world1(dev, card):
+    """Each program of parallel/spmd.py on a one-rank NCCL mesh, through the
+    code it runs at any world size, against its single-device counterpart:
+    the sharded GICP on the bench pair at the bench caps (K1 at k = 1 on
+    the shard, within 1e-4), ``batched_gicp_align`` (K1b at k = 15, K2b)
+    and the sharded loop-closure batch (K1b, K2b, K3b-K5b) at the
+    pipeline's caps with its ``loop_batch`` lanes (bit for bit), and
+    ``pgo_optimize_full`` at full capacity with 2 and 5 GN steps (within
+    1e-4; a repeat bit for bit); counters reset just before each program
+    and read just after; each program and its counterpart timed (CUDA
+    events, median of 10)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch import kernels
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import (
+        LoopClosure, set_src_and_dst_cloud)
+    from fast_lio_sam_qn_tpu_torch.ops import gicp, knn_cuda, pgo
+    from fast_lio_sam_qn_tpu_torch.parallel import mesh as meshlib
+    from fast_lio_sam_qn_tpu_torch.parallel import spmd
+    from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+    from fast_lio_sam_qn_tpu_torch.tools.pgo_graph import build_graph
+
+    store, _ = bp.build_store(dev)
+    cfg = bp.bench_config(True)
+
+    def clouds(src_cap, dst_cap):
+        return set_src_and_dst_cloud(
+            store, 1, 0, submap_range=cfg.num_submap_keyframes,
+            src_cap=src_cap, dst_cap=dst_cap, voxel_res=cfg.voxel_res,
+            enable_quatro=cfg.enable_quatro,
+            enable_submap_matching=cfg.enable_submap_matching)
+
+    def counted(fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launches_now(), knn_cuda.knn.launches_k.get(1, 0)
+
+    mesh = meshlib.make_mesh(1, device=dev, backend="nccl")
+    try:
+        # the point-sharded GICP
+        (src, sm), (dst, dm) = clouds(bp.SRC_CAP, bp.DST_CAP)
+        scov, sok = gicp.plane_covariances(src, sm, 15)
+        dcov, dok = gicp.plane_covariances(dst, dm, 15)
+        args = (src, sm & sok, scov, dst, dm & dok, dcov)
+        eye = torch.eye(4, device=dev)
+        (T, iters), _, k1 = counted(
+            lambda: spmd.sharded_gicp_align(mesh, *args, eye))
+        one = gicp._gicp_iterate(
+            *(a[None] for a in args), eye[None], 52.5, 0.01, 32,
+            lambda *a: kernels.per_lane(knn_cuda.nn, *a))
+        gap = float(torch.max(torch.abs(T - one.T[0])))
+        log(f"mesh ws1 sharded_gicp_align {bp.SRC_CAP} x {bp.DST_CAP}: "
+            f"{iters} iterations (single {int(one.it[0])}), K1 k=1 "
+            f"launches {k1}, largest |T - single| {gap:.3e}")
+        if k1 <= 0 or gap >= 1e-4 or not bool(torch.isfinite(T).all()):
+            raise AssertionError("mesh sharded GICP: K1 k=1 launches "
+                                 f"{k1}, gap {gap}")
+        t_sh = cuda_ms(lambda: spmd.sharded_gicp_align(mesh, *args, eye))
+        t_one = cuda_ms(lambda: gicp._gicp_iterate(
+            *(a[None] for a in args), eye[None], 52.5, 0.01, 32,
+            lambda *a: kernels.per_lane(knn_cuda.nn, *a)))
+        log(f"time mesh ws1 sharded_gicp_align: {t_sh:.3f} ms; single-"
+            f"device GN {t_one:.3f} ms [{card}]")
+
+        # the batched GICP on the pipeline's lanes
+        lanes = pipeline_config().loop.loop_batch
+        (src, sm), (dst, dm) = clouds(bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP)
+        P, PM = jittered_lanes(src, sm, lanes, 7)
+        D, DM = jittered_lanes(dst, dm, lanes, 8)
+        inits = torch.eye(4, device=dev).repeat(lanes, 1, 1)
+        got, d, _ = counted(lambda: spmd.batched_gicp_align(
+            mesh, P, PM, D, DM, inits))
+        want = spmd.align_lanes(P, PM, D, DM, inits)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("mesh batched GICP differs from the "
+                                 "unsharded batch")
+        log(f"mesh ws1 batched_gicp_align B={lanes} {bp.PIPE_SRC_CAP} x "
+            f"{bp.PIPE_DST_CAP}: equal to the unsharded batch bit for bit; "
+            f"fitness {got[1].tolist()}; K1b k=15 launches "
+            f"{d['knn_b_k15']}, K2b {d['knn_banded_b']}")
+        if not (d["knn_b_k15"] > 0 and d["knn_banded_b"] > 0):
+            raise AssertionError(f"mesh batched GICP launched {d}")
+        t_sh = cuda_ms(lambda: spmd.batched_gicp_align(mesh, P, PM, D, DM,
+                                                       inits))
+        t_one = cuda_ms(lambda: spmd.align_lanes(P, PM, D, DM, inits))
+        log(f"time mesh ws1 batched_gicp_align: {t_sh:.3f} ms; unsharded "
+            f"{t_one:.3f} ms [{card}]")
+
+        # the sharded loop-closure batch
+        lc = LoopClosure(cfg, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP)
+        q, c = [1] * lanes, [0] * (lanes - 1) + [-1]
+        got, d, _ = counted(lambda: spmd.loop_closure_batch(mesh, lc, store,
+                                                            q, c))
+        want = lc.perform_loop_closure_batch(store, q, c)
+        for f in got._fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"mesh loop batch: {f} differs")
+        log(f"mesh ws1 loop_closure_batch {q} -> {c}: every field equal to "
+            f"the unsharded batch lane by lane; valid "
+            f"{got.is_valid.tolist()}; launches "
+            f"{ {k: d[k] for k in BATCHED} }")
+        if not all(d[k] > 0 for k in BATCHED):
+            raise AssertionError(f"mesh loop batch launched {d}")
+        t_sh = cuda_ms(lambda: spmd.loop_closure_batch(mesh, lc, store, q, c))
+        t_one = cuda_ms(lambda: lc.perform_loop_closure_batch(store, q, c))
+        log(f"time mesh ws1 loop_closure_batch B={lanes}: {t_sh:.3f} ms; "
+            f"unsharded {t_one:.3f} ms [{card}]")
+
+        # the factor-sharded pose-graph solve at full capacity
+        pc = pipeline_config()
+        g, _, n_loops = build_graph(1024, device=dev,
+                                    capacity=pc.caps.max_keyframes,
+                                    loop_capacity=pc.caps.max_loop_factors)
+        var = (pc.prior_variances, pc.odom_variances)
+        for gn in (2, 5):
+            kw = dict(gn_iters=gn, robust_delta=pc.robust_delta)
+            a = spmd.pgo_optimize_full(mesh, g, *var, **kw)
+            b = spmd.pgo_optimize_full(mesh, g, *var, **kw)
+            one = pgo.optimize(g, *var, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError("a repeated sharded PGO solve differs")
+            gap = float(torch.max(torch.abs(_pose_table(a)
+                                            - _pose_table(one))))
+            moved = float(torch.max(torch.abs(_pose_table(a)
+                                              - _pose_table(g))))
+            t_sh = cuda_ms(lambda: spmd.pgo_optimize_full(mesh, g, *var,
+                                                          **kw))
+            t_one = cuda_ms(lambda: pgo.optimize(g, *var, **kw))
+            log(f"mesh ws1 pgo_optimize_full {gn} GN steps, 1024 of "
+                f"{pc.caps.max_keyframes} nodes, {n_loops} of "
+                f"{pc.caps.max_loop_factors} loops: poses moved {moved:.3e},"
+                f" largest gap to pgo.optimize {gap:.3e}; a repeat bit for "
+                f"bit; {t_sh:.3f} ms, pgo.optimize {t_one:.3f} ms [{card}]")
+            if gap >= 1e-4 or moved <= 1e-3:
+                raise AssertionError(f"mesh PGO: gap {gap}, moved {moved}")
+        log(f"mesh ws1: {mesh.collectives} collectives in "
+            f"{mesh.collective_s * 1e3:.1f} ms of host time")
+    finally:
+        mesh.close()
+
+
+def mesh_pipeline_rank(mesh):
+    """One rank of the 2-rank pipeline run: ``pipeline_run`` over ``mesh``
+    with the sharded solve from ``MESH_SHARD_MIN`` factors, its gates
+    (``check_pipeline``), and what the parent compares across ranks."""
+    import hashlib
+
+    import torch
+
+    cfg = pipeline_config()
+    cfg.pgo_shard_min_factors = MESH_SHARD_MIN
+    reset_launches()
+    t0 = time.perf_counter()
+    pipe, gt_kf, ate_odom, ticks, _ = pipeline_run(mesh.device, cfg, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    multi = check_pipeline(pipe, gt_kf, ate_odom, ticks)
+    _, corrected = pipe.get_trajectories()
+    events = [(e.tick_time, e.query_idx, e.closest_idx, e.score, e.accepted)
+              for e in pipe.loop_events]
+    return dict(
+        wall=wall, ticks=len(ticks), multi=len(multi),
+        keyframes=pipe.current_kf_idx, commits=len(pipe.loop_idx_pairs),
+        accepted=sum(e.accepted for e in pipe.loop_events),
+        traj=hashlib.sha256(corrected.tobytes()).hexdigest(),
+        events=hashlib.sha256(repr(events).encode()).hexdigest(),
+        sharded=pipe.pgo_sharded_solves, single=pipe.pgo_single_solves,
+        loops_max=pipe.pgo_sharded_loop_factors_max,
+        collective_ms=mesh.collective_s * 1e3, collectives=mesh.collectives,
+        launches={k: launches[k] for k in BATCHED})
+
+
+def mesh_world2(card):
+    """chip_smoke's pipeline run over 2 ranks that share the card over gloo
+    (the only way to run the pipeline's sharded branches on a one-card
+    host), each rank its own process: ``check_pipeline``'s gates with
+    12-13 commits read as one result, both ranks' trajectory and event
+    digests equal, the sharded solve engaged."""
+    import tempfile
+
+    from fast_lio_sam_qn_tpu_torch.parallel import mesh as meshlib
+
+    log(f"mesh ws2: pipeline_run over 2 gloo ranks on cuda:0, "
+        f"pgo_shard_min_factors lowered to {MESH_SHARD_MIN} so that the "
+        f"sharded solve engages")
+    t0 = time.perf_counter()
+    outs = meshlib.run_ranks(mesh_pipeline_rank, ["cuda:0", "cuda:0"],
+                             backend="gloo",
+                             workdir=tempfile.mkdtemp(prefix="mesh_ranks_"),
+                             timeout_s=MESH_RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        log(f"mesh ws2 rank {r}: {o['keyframes']} keyframes, {o['ticks']} "
+            f"batched ticks ({o['multi']} with 2+ candidate lanes), "
+            f"{o['accepted']} accepted, {o['commits']} committed; solves "
+            f"{o['sharded']} sharded / {o['single']} single, up to "
+            f"{o['loops_max']} loop factors in a sharded one; run "
+            f"{o['wall']:.1f} s, of it {o['collective_ms']:.1f} ms in "
+            f"{o['collectives']} host-staged collectives; launches "
+            f"{o['launches']}; trajectory {o['traj'][:16]}, events "
+            f"{o['events'][:16]} [{card}]")
+    a, b = outs
+    if (a["traj"], a["events"]) != (b["traj"], b["events"]):
+        raise AssertionError("the two ranks' trajectories or events differ")
+    if a["sharded"] <= 0 or a["loops_max"] <= 0:
+        raise AssertionError(f"the sharded solve never engaged: {a}")
+    if not 12 <= a["commits"] <= 13:
+        raise AssertionError(f"{a['commits']} commits, not 12-13")
+    if not all(v > 0 for v in a["launches"].values()):
+        raise AssertionError(f"a batched kernel never launched: "
+                             f"{a['launches']}")
+    log(f"mesh ws2: both ranks equal bit for bit; {wall:.1f} s with the "
+        f"ranks' start")
+
+
+def mesh_phases(dev, card):
+    t0 = time.perf_counter()
+    mesh_world1(dev, card)
+    log(f"mesh ws1: {time.perf_counter() - t0:.1f} s")
+    mesh_world2(card)
+    log(f"mesh: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2834,6 +3090,7 @@ def main() -> int:
     t0 = time.perf_counter()
     longrun_phase(dev, card)
     log(f"longrun: {time.perf_counter() - t0:.1f} s")
+    mesh_phases(dev, card)
 
     log("every phase passed")
     knn_src = "fast_lio_sam_qn_tpu/ops/pallas_knn.py"

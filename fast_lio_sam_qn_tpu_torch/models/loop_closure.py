@@ -16,7 +16,8 @@ fast_lio_sam_qn_tpu/models/loop_closure.py (single-candidate path).
   there is a candidate, and the graph measurement.
 - ``fetch_closest_batch`` / ``perform_loop_closure_batch``: B candidates in
   one registration, the counterpart of the reference's
-  ``jax.vmap(_perform_impl)``.
+  ``jax.vmap(_perform_impl)``; given a mesh of more than one rank, the
+  lanes are sharded over it (``parallel.spmd.loop_closure_batch``).
 
 The registration is written once, over a leading batch axis of lanes
 (``_register``).  The batched tick runs it with the batched kernels: the
@@ -26,8 +27,7 @@ The clouds are built, and Quatro's clique / GNC / voting steps run, lane by
 lane.
 
 The reference fuses a tick into one jitted program with ``lax.cond``; here
-the tick reads the candidate index back once and branches in Python.  The
-sharded batch (a device mesh) is not ported yet.
+the tick reads the candidate index back once and branches in Python.
 """
 from __future__ import annotations
 
@@ -136,12 +136,15 @@ class LoopClosure:
         return torch.stack([self.fetch_closest_keyframe_idx(store, p, t)
                             for p, t in zip(query_poses, query_times)])
 
-    def warm_batch(self, store: KeyframeStore):
+    def warm_batch(self, store: KeyframeStore, batch: int | None = None,
+                   mesh=None):
         """Load the kernel library (building it if missing) for a store on
-        the card, so that the first batched tick pays no build.  The
+        the card, so that the first batched tick pays no build, and check
+        that a mesh of more than one rank divides the ``batch`` lanes.  The
         reference compiles its B-lane program here; eager PyTorch has no
-        program to compile (every batch size runs the same kernels), and
-        this adds no other behaviour."""
+        program to compile (every batch size runs the same kernels)."""
+        if batch is not None and mesh is not None and mesh.size > 1:
+            mesh.shard_rows(batch)
         if store.clouds.device.type == "cuda":
             kernels.load_library()
 
@@ -278,11 +281,19 @@ class LoopClosure:
             closest_idx=torch.where(has, closest, -1))
 
     def perform_loop_closure_batch(self, store: KeyframeStore, query_idxs,
-                                   closest_idxs) -> RegistrationOutput:
+                                   closest_idxs, mesh=None
+                                   ) -> RegistrationOutput:
         """Register B query keyframes against their candidates in one
         batched registration (the batched kernels, one launch for all
         lanes).  The indices are host sequences (or tensors, read once);
-        lanes with closest_idx < 0 are padding (see ``_register``)."""
+        lanes with closest_idx < 0 are padding (see ``_register``).  With
+        a mesh of more than one rank the lanes are sharded over it (B a
+        multiple of its size) and gathered back."""
+        if mesh is not None and mesh.size > 1:
+            from ..parallel import spmd
+
+            return spmd.loop_closure_batch(mesh, self, store, query_idxs,
+                                           closest_idxs)
         return self._register(
             store, [int(i) for i in torch.as_tensor(query_idxs).tolist()],
             [int(i) for i in torch.as_tensor(closest_idxs).tolist()],

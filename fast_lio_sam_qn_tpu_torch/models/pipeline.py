@@ -1,6 +1,5 @@
 """Pose-graph pipeline fed with external odometry — port of
-fast_lio_sam_qn_tpu/models/pipeline.py (``FastLioSamQnPipeline`` without a
-device mesh).
+fast_lio_sam_qn_tpu/models/pipeline.py (``FastLioSamQnPipeline``).
 
 - ``feed``: one (pose, body cloud, timestamp) triple, as the reference
   consumes them from FAST-LIO: the realtime pose from the accumulated
@@ -14,6 +13,12 @@ device mesh).
   keyframes, one batched registration for two or more
   (``LoopClosure.perform_loop_closure_batch``), the single-candidate tick
   for one.
+- given a device mesh (``parallel.mesh.Mesh``) every rank runs the same
+  pipeline on the same data: the batched tick's lanes are sharded over
+  the mesh (even one pending keyframe goes through the batch), and from
+  ``pgo_shard_min_factors`` factors on a mesh of more than one rank the
+  keyframe solve is the factor-sharded ``spmd.pgo_optimize_full``.  Every
+  decision reads replicated values, so every rank takes the same ones.
 - the vis timer's products are getters.
 
 One host pull per ``feed`` and per tick, as the reference: every scalar a
@@ -76,13 +81,18 @@ def _feed_step(odom_delta, last_odom_pose, last_corrected, last_kf_corrected,
 class FastLioSamQnPipeline:
     def __init__(self, cfg: Optional[PipelineConfig] = None,
                  profiler: Optional[Profiler] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         """profiler records the reference's stage spans ('real', 'key_add',
         'opt' per scan, 'loop' per tick).  device holds every tensor of the
-        pipeline's state."""
+        pipeline's state; mesh, where given, is this rank's
+        ``parallel.mesh.Mesh`` on that device."""
         self.cfg = cfg or PipelineConfig()
         self.profiler = profiler or Profiler()
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's rank is on {mesh.device}, the "
+                             f"pipeline on {self.device}")
         c = self.cfg
         self.loop_closure = LoopClosure(
             c.loop, src_cap=c.caps.src_points, dst_cap=c.caps.dst_points)
@@ -105,8 +115,14 @@ class FastLioSamQnPipeline:
         self._kf_processed: List[bool] = []
         self._next_loop_tick: Optional[float] = None
         self._pending_loops: List[dict] = []
+        # the keyframe solves on each branch, and the most loop factors in
+        # the graph of a sharded one
+        self.pgo_sharded_solves = 0
+        self.pgo_single_solves = 0
+        self.pgo_sharded_loop_factors_max = 0
         if c.loop.loop_batch > 1:
-            self.loop_closure.warm_batch(self.store)
+            self.loop_closure.warm_batch(
+                self.store, self._batch_lanes(c.loop.loop_batch), self.mesh)
 
         self._last_cloud_body = None
         self._last_cloud_mask = None
@@ -199,9 +215,22 @@ class FastLioSamQnPipeline:
     def _optimize_and_refresh(self):
         # reference: isam.update x2, x5 when a loop was added (:156-165)
         gn = 5 if self.loop_added_flag else 2
-        self.graph = pgo.optimize(
-            self.graph, self._prior_var, self._odom_var, gn_iters=gn,
-            pcg_iters=64, robust_delta=self.cfg.robust_delta)
+        n_factors = self.current_kf_idx + len(self.loop_idx_pairs) + 1
+        if (self.mesh is not None and self.mesh.size > 1
+                and n_factors >= self.cfg.pgo_shard_min_factors):
+            from ..parallel import spmd
+
+            self.graph = spmd.pgo_optimize_full(
+                self.mesh, self.graph, self._prior_var, self._odom_var,
+                gn_iters=gn, pcg_iters=64, robust_delta=self.cfg.robust_delta)
+            self.pgo_sharded_solves += 1
+            self.pgo_sharded_loop_factors_max = max(
+                self.pgo_sharded_loop_factors_max, len(self.loop_idx_pairs))
+        else:
+            self.graph = pgo.optimize(
+                self.graph, self._prior_var, self._odom_var, gn_iters=gn,
+                pcg_iters=64, robust_delta=self.cfg.robust_delta)
+            self.pgo_single_solves += 1
         last = self.graph.poses[self.current_kf_idx - 1]
         self.last_corrected_pose = last
         # the next odometry factor is between(last_kf_corrected, ...): it
@@ -288,6 +317,13 @@ class FastLioSamQnPipeline:
         self.loop_idx_pairs.append((query_idx, closest_i))
         self.loop_added_flag = True
 
+    def _batch_lanes(self, batch: int) -> int:
+        """Lanes of a batched registration: with a mesh, ``batch`` rounded
+        up to a multiple of its size (pad lanes carry closest_idx = -1)."""
+        if self.mesh is not None:
+            batch = -(-batch // self.mesh.size) * self.mesh.size
+        return batch
+
     def _loop_tick_batched(self, tick_time: float, batch: int):
         pending = [i for i, p in enumerate(self._kf_processed) if not p]
         pending = pending[:batch]
@@ -296,11 +332,12 @@ class FastLioSamQnPipeline:
         for i in pending:
             self._kf_processed[i] = True
         self.latest_kf_processed = self._kf_processed[-1]
-        if len(pending) == 1:
+        if self.mesh is None and len(pending) == 1:
             # one pending keyframe: the single-candidate tick, the same
             # per-candidate math as a batch lane
             self._register_single_candidate(tick_time, pending[0])
             return
+        batch = self._batch_lanes(batch)
         qidx = np.zeros(batch, np.int64)
         qidx[:len(pending)] = pending
         q = torch.as_tensor(qidx, device=self.device)
@@ -311,7 +348,7 @@ class FastLioSamQnPipeline:
         if (closest_np < 0).all():
             return
         reg = self.loop_closure.perform_loop_closure_batch(
-            self.store, qidx.tolist(), closest_np.tolist())
+            self.store, qidx.tolist(), closest_np.tolist(), mesh=self.mesh)
         valid, scores, poses_np = _pull(reg.is_valid, reg.score,
                                         reg.pose_between)
         for b in range(len(pending)):

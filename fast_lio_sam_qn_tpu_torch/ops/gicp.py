@@ -123,6 +123,34 @@ def nn_lanes(queries, qmask, db, dbmask):
     return kernels.per_lane(knn_cuda.nn_banded, queries, qmask, db, dbmask)
 
 
+def normal_equations(R, y, src_cov, dst, dst_cov, idx, corr):
+    """The Gauss-Newton normal equations of B lanes, summed over their
+    correspondences: R (B, 3, 3) the current rotation, y (B, N, 3) the
+    transformed source, src_cov (B, N, 3, 3), dst / dst_cov the target
+    rows, idx (B, N) each point's nearest target row and corr (B, N) the
+    correspondences that count.  Returns (H (B, 6, 6), b (B, 6)) in fp32;
+    the step solves H xi = -b, tangent (w, v), T <- exp(xi) T.  Shared by
+    the GN loop here and the point-sharded one (parallel/spmd.py), which
+    all-reduces each rank's (H, b)."""
+    j = torch.clamp(idx, min=0)
+    # M = (C_dst + R C_src R^T)^-1 per correspondence
+    RCsRt = torch.einsum("zab,znbc,zdc->znad", R, src_cov, R)
+    M = linalg3.inv3(knn_cuda.take_rows(dst_cov, j) + RCsRt)
+    r = knn_cuda.take_rows(dst, j) - y
+    Jw = se3.hat(y)  # d r / d w; J = [hat(y) | -I], T <- exp(xi) T
+    w = corr.to(y.dtype)
+    MJw = torch.einsum("znab,znbc->znac", M, Jw)
+    Hww = torch.einsum("znba,znbc,zn->zac", Jw, MJw, w)
+    Hwv = -torch.einsum("znba,znbc,zn->zac", Jw, M, w)
+    Hvv = torch.einsum("znab,zn->zab", M, w)
+    Mr = torch.einsum("znab,znb->zna", M, r)
+    bw = torch.einsum("znba,znb,zn->za", Jw, Mr, w)
+    bv = -torch.einsum("zna,zn->za", Mr, w)
+    H = torch.cat([torch.cat([Hww, Hwv], 2),
+                   torch.cat([Hwv.transpose(1, 2), Hvv], 2)], 1)
+    return H, torch.cat([bw, bv], -1)
+
+
 def _gicp_iterate(src, src_mask, src_cov, dst, dst_mask, dst_cov, init_T,
                   max_corr_dist: float, trans_eps: float, max_iter: int,
                   nn) -> _GNState:
@@ -144,23 +172,8 @@ def _gicp_iterate(src, src_mask, src_cov, dst, dst_mask, dst_cov, init_T,
         y = se3.transform_points(src, st.T)
         d2, idx, nn_ok = nn(y.contiguous(), src_mask, dst, dst_mask)
         corr = nn_ok & (d2 < max_d2)
-        j = torch.clamp(idx, min=0)
-        # M = (C_dst + R C_src R^T)^-1 per correspondence
-        RCsRt = torch.einsum("zab,znbc,zdc->znad", R, src_cov, R)
-        M = linalg3.inv3(knn_cuda.take_rows(dst_cov, j) + RCsRt)
-        r = knn_cuda.take_rows(dst, j) - y
-        Jw = se3.hat(y)  # d r / d w; J = [hat(y) | -I], T <- exp(xi) T
-        w = corr.to(src.dtype)
-        MJw = torch.einsum("znab,znbc->znac", M, Jw)
-        Hww = torch.einsum("znba,znbc,zn->zac", Jw, MJw, w)
-        Hwv = -torch.einsum("znba,znbc,zn->zac", Jw, M, w)
-        Hvv = torch.einsum("znab,zn->zab", M, w)
-        Mr = torch.einsum("znab,znb->zna", M, r)
-        bw = torch.einsum("znba,znb,zn->za", Jw, Mr, w)
-        bv = -torch.einsum("zna,zn->za", Mr, w)
-        H = torch.cat([torch.cat([Hww, Hwv], 2),
-                       torch.cat([Hwv.transpose(1, 2), Hvv], 2)], 1)
-        xi = linalg3.solve6(H, -torch.cat([bw, bv], -1), damping=1e-6)
+        H, bvec = normal_equations(R, y, src_cov, dst, dst_cov, idx, corr)
+        xi = linalg3.solve6(H, -bvec, damping=1e-6)
         delta = torch.linalg.norm(xi, dim=-1)
         a3 = active[:, None, None]
         st = _GNState(

@@ -15,6 +15,10 @@ What differs in mechanism, not in result:
   sums in a run-dependent order on CUDA.  Here odometry rows are two
   shifted adds, and loop rows are a product with a fixed one-hot (node x
   loop) matrix built once per solve, so a solve repeats bit for bit.
+  The factor-sharded solve (parallel/spmd.py), whose rank holds any slice
+  of the rows, sums them with ``RowScatter``: a product with a one-hot
+  (node x row) matrix of the slice's indices (``factor_indices``), never
+  ``index_add_``.
 - **PCG's early exit.**  The reference's ``while_loop`` stops once
   sum(r*r) <= 1e-10 max(r0.r0, 1e-20) or after ``pcg_iters``.  Here the
   carry freezes (``torch.where``) once that test fails, which gives the
@@ -236,6 +240,39 @@ class _Scatter:
         return out
 
 
+def factor_indices(graph: GraphState):
+    """The node indices of ``_factor_data``'s rows, (idx_i, idx_j) int64 in
+    the reference's layout: odometry row f joins max(f - 1, 0) and f, loop
+    row l joins the clamped loop_i[l] and loop_j[l], and the prior joins a
+    virtual node, index -1 (which ``RowScatter`` drops; the reference
+    writes 0 there, under a zero Jacobian), to node 0."""
+    n_cap = graph.capacity
+    node = torch.arange(n_cap, device=graph.poses.device)
+    li = torch.clamp(graph.loop_i, 0, n_cap - 1).long()
+    lj = torch.clamp(graph.loop_j, 0, n_cap - 1).long()
+    return (torch.cat([torch.clamp(node - 1, min=0), li, node[:1] - 1]),
+            torch.cat([node, lj, node[:1]]))
+
+
+class RowScatter:
+    """Sum any slice of factor rows into per-node rows by their node
+    indices (-1 drops a row), deterministically: a product with the fixed
+    one-hot (n_cap x rows) matrix of the indices, built once per solve."""
+
+    def __init__(self, idx: torch.Tensor, n_cap: int, dtype: torch.dtype):
+        self.idx = torch.clamp(idx, min=0)
+        nodes = torch.arange(n_cap, device=idx.device)
+        self.S = (nodes[:, None] == idx[None, :]).to(dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-row x at each row's node (node 0 for a dropped row)."""
+        return x[self.idx]
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        out = self.S @ rows.reshape(rows.shape[0], -1)
+        return out.reshape((self.S.shape[0],) + rows.shape[1:])
+
+
 def _hx(scatter: _Scatter, Ji, Jj, w6, valid, x):
     """H @ x without forming H.  x: (N, 6)."""
     xi, xj = scatter.gather(x)
@@ -295,30 +332,40 @@ def optimize(graph: GraphState, prior_var, odom_var, gn_iters: int = 3,
         P = scatter(torch.einsum("fba,fbc->fac", Ji, Ji * wv),
                     torch.einsum("fba,fbc->fac", Jj, Jj * wv))
         Pinv = torch.linalg.inv(P + 1e-6 * eye6)
-
-        def precond(v):
-            return torch.einsum("nab,nb->na", Pinv, v) * active
-
-        x = torch.zeros((n_cap, 6), dtype=r.dtype, device=dev)
-        rr = -b * active
-        z = precond(rr)
-        p = z
-        rz = torch.sum(rr * z)
-        thr = 1e-10 * torch.clamp(torch.sum(rr * rr), min=1e-20)
-        live = torch.sum(rr * rr) > thr
-        for it in range(pcg_iters):
-            hp = _hx(scatter, Ji, Jj, w6, valid, p) * active
-            alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
-            rr_n = rr - alpha * hp
-            z_n = precond(rr_n)
-            rz_n = torch.sum(rr_n * z_n)
-            p_n = z_n + rz_n / torch.clamp(rz, min=1e-20) * p
-            x = torch.where(live, x + alpha * p, x)
-            rr = torch.where(live, rr_n, rr)
-            p = torch.where(live, p_n, p)
-            rz = torch.where(live, rz_n, rz)
-            live = live & (torch.sum(rr * rr) > thr)
-            if (it + 1) % PCG_CHECK == 0 and not bool(live):
-                break
+        x = pcg(b, Pinv, lambda v: _hx(scatter, Ji, Jj, w6, valid, v) * active,
+                active, pcg_iters)
         g = gn_retract(g, x, active)
     return g
+
+
+def pcg(b, Pinv, hx, active, pcg_iters: int) -> torch.Tensor:
+    """Block-Jacobi preconditioned CG for H x = -b from x = 0 (N, 6),
+    shared by ``optimize`` and the factor-sharded solve: ``Pinv`` (N, 6, 6)
+    the inverted diagonal blocks, ``hx(v)`` H v on the active rows.  Stops
+    once sum(r*r) <= 1e-10 max(r0.r0, 1e-20) or after ``pcg_iters``; the
+    host reads the live flag every ``PCG_CHECK`` iterations."""
+    def precond(v):
+        return torch.einsum("nab,nb->na", Pinv, v) * active
+
+    x = torch.zeros_like(b)
+    rr = -b * active
+    z = precond(rr)
+    p = z
+    rz = torch.sum(rr * z)
+    thr = 1e-10 * torch.clamp(torch.sum(rr * rr), min=1e-20)
+    live = torch.sum(rr * rr) > thr
+    for it in range(pcg_iters):
+        hp = hx(p)
+        alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
+        rr_n = rr - alpha * hp
+        z_n = precond(rr_n)
+        rz_n = torch.sum(rr_n * z_n)
+        p_n = z_n + rz_n / torch.clamp(rz, min=1e-20) * p
+        x = torch.where(live, x + alpha * p, x)
+        rr = torch.where(live, rr_n, rr)
+        p = torch.where(live, p_n, p)
+        rz = torch.where(live, rz_n, rz)
+        live = live & (torch.sum(rr * rr) > thr)
+        if (it + 1) % PCG_CHECK == 0 and not bool(live):
+            break
+    return x

@@ -28,8 +28,16 @@ equivalent, as the JAX package's ``run.py``:
 ``--device`` (default ``cuda``) holds every tensor; ``--device cpu`` runs
 the kernels' plain versions.  ``--plot PNG`` renders the trajectories, the
 loop edges and the map (needs matplotlib; without it the run stops before
-it starts).  The device mesh (``--devices``) is not ported yet: its flag
-stops with an error that names the ROADMAP item.
+it starts).
+
+  torchrun --nproc-per-node N -m fast_lio_sam_qn_tpu_torch.run --devices N ...
+      Any mode over a device mesh of N ranks (parallel/mesh.py): rank r on
+      cuda:LOCAL_RANK over NCCL, or with --device cpu on the CPU over gloo.
+      The batched loop tick's lanes (``--loop-batch``, default N) are
+      sharded over the ranks, and from ``pgo_shard_min_factors`` factors
+      the keyframe solve is factor-sharded.  Every rank runs the same
+      decisions; rank 0 alone prints the report and writes the exports and
+      checkpoints.
 """
 from __future__ import annotations
 
@@ -73,8 +81,9 @@ class RunObservers:
     """
 
     def __init__(self, args, vis_hz: float, save_voxel_res: float = 0.3):
-        self.trigger = args.save_trigger
-        self.watch = args.watch
+        lead = _lead(args)
+        self.trigger = args.save_trigger if lead else None
+        self.watch = args.watch if lead else None
         self.period = 1.0 / max(vis_hz, 1e-6)
         self.save_voxel_res = save_voxel_res
         self._next = None
@@ -119,7 +128,9 @@ def _get_pipeline_config(args, preset):
     ``--ref-config`` (the reference's rosparam YAML for the pose graph and
     the loop closure, strict parity unless ``--no-strict-parity``; the LIO
     keeps the preset's tuning), ``--lio-config`` (a FAST-LIO YAML over the
-    LIO config), ``--scan-cap``, ``--table-size`` and ``--loop-batch``."""
+    LIO config), ``--scan-cap``, ``--table-size`` and ``--loop-batch``
+    (absent with ``--devices N > 1``: one lane a rank, N; an explicit 0
+    keeps the reference's latest-keyframe timer)."""
     if args.ref_config:
         cfg = load_reference_yaml(args.ref_config,
                                   strict_parity=not args.no_strict_parity)
@@ -135,7 +146,29 @@ def _get_pipeline_config(args, preset):
         cfg.lio = dataclasses.replace(cfg.lio, **over)
     if args.loop_batch is not None:
         cfg.loop.loop_batch = args.loop_batch
+    elif args.devices and args.devices > 1:
+        cfg.loop.loop_batch = args.devices
     return cfg
+
+
+def _build_mesh(args):
+    """``--devices N``: this rank's mesh of the N ranks that ``torchrun
+    --nproc-per-node N`` started, on cuda:LOCAL_RANK over NCCL, or with
+    ``--device cpu`` on the CPU over gloo.  None for N <= 1."""
+    n = args.devices
+    if not n or n <= 1:
+        return None
+    from .parallel.mesh import make_mesh
+
+    if torch.device(args.device).type == "cpu":
+        return make_mesh(n, device="cpu", backend="gloo")
+    return make_mesh(n, device=f"cuda:{int(os.environ['LOCAL_RANK'])}",
+                     backend="nccl")
+
+
+def _lead(args) -> bool:
+    """Whether this process prints and writes: the only one, or rank 0."""
+    return args.mesh is None or args.mesh.rank == 0
 
 
 def sim_lio_stream(cfg, world, traj, n_scans, scan_hz=5.0, prof=None,
@@ -232,7 +265,7 @@ def run_sim(args):
     obs = RunObservers(args, cfg.vis_hz, cfg.save_voxel_resolution)
     world, traj, cfg = _sim_scene(args.trajectory, cfg)
     device = torch.device(args.device)
-    pipe = FastLioSamQnPipeline(cfg, device=device)
+    pipe = FastLioSamQnPipeline(cfg, device=device, mesh=args.mesh)
     scan_hz = args.scan_hz or 5.0
     n_scans = args.n_scans or 240
 
@@ -323,7 +356,8 @@ def run_parity(args):
     ``--sync-slop`` are dropped and counted, the pairs stamped with the
     odometry's time."""
     cfg = _get_pipeline_config(args, args.preset)
-    pipe = FastLioSamQnPipeline(cfg, device=torch.device(args.device))
+    pipe = FastLioSamQnPipeline(cfg, device=torch.device(args.device),
+                                mesh=args.mesh)
     prof = Profiler()
     scan_paths = sorted(glob.glob(os.path.join(args.scans, "*.bin"))
                         + glob.glob(os.path.join(args.scans, "*.pcd")))
@@ -404,7 +438,7 @@ def run_bag(args):
     that was not fed counted as dropped."""
     cfg = _get_pipeline_config(args, args.preset)
     device = torch.device(args.device)
-    pipe = FastLioSamQnPipeline(cfg, device=device)
+    pipe = FastLioSamQnPipeline(cfg, device=device, mesh=args.mesh)
     prof = Profiler()
     obs = RunObservers(args, cfg.vis_hz, cfg.save_voxel_resolution)
     reader = rosbag.BagReader(args.bag)
@@ -587,7 +621,7 @@ def run_kitti(args):
     the whole state, ``--resume`` continues a saved run."""
     cfg = _get_pipeline_config(args, args.preset)
     device = torch.device(args.device)
-    pipe = FastLioSamQnPipeline(cfg, device=device)
+    pipe = FastLioSamQnPipeline(cfg, device=device, mesh=args.mesh)
     prof = Profiler()
     lio = LIO(cfg.lio, imu_cap=IMU_CAP, device=device)
     obs = RunObservers(args, cfg.vis_hz, cfg.save_voxel_resolution)
@@ -637,8 +671,8 @@ def run_kitti(args):
                 pipe.feed(res.pose, res.cloud_body, res.cloud_mask,
                           float(t1), intensity=res.intensity)
             obs.tick(pipe, float(t1))
-            if args.checkpoint and args.checkpoint_every and \
-                    (i + 1) % args.checkpoint_every == 0:
+            if args.checkpoint and args.checkpoint_every and _lead(args) \
+                    and (i + 1) % args.checkpoint_every == 0:
                 save_checkpoint(pipe, args.checkpoint, lio_state=state,
                                 extra={"scan_index": i + 1})
             if args.verbose and i % 50 == 0:
@@ -646,7 +680,7 @@ def run_kitti(args):
                       f"matches={int(res.num_matches)}", flush=True)
     finally:
         loader.close()
-    if args.checkpoint:
+    if args.checkpoint and _lead(args):
         save_checkpoint(pipe, args.checkpoint, lio_state=state,
                         extra={"scan_index": n})
     report = {
@@ -660,17 +694,6 @@ def run_kitti(args):
     if (ext := _extrinsic_report(cfg, state)) is not None:
         report["extrinsic_estimate"] = ext
     return pipe, report
-
-
-# flags of the JAX CLI whose code is not ported yet, with the ROADMAP item
-# that ports it: they stop the run instead of being accepted and ignored
-_NOT_PORTED = {"--devices": 19}
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (ROADMAP.md, "
-                     f"queue 1 item {_NOT_PORTED[option_string]})")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -747,7 +770,14 @@ def parser() -> argparse.ArgumentParser:
                    help="override lio.map_table_size (voxel-hash slots)")
     p.add_argument("--loop-batch", type=int, default=None, dest="loop_batch",
                    help="register up to N pending keyframes per loop tick "
-                        "(0 or absent: the reference's latest keyframe)")
+                        "(0 or absent: the reference's latest keyframe); "
+                        "with --devices the lanes are sharded over the mesh")
+    p.add_argument("--devices", type=int, default=None,
+                   help="run over a mesh of N ranks, started by torchrun "
+                        "--nproc-per-node N (cuda:LOCAL_RANK over NCCL, or "
+                        "with --device cpu the CPU over gloo): the loop "
+                        "batch and, from pgo_shard_min_factors factors, the "
+                        "pose-graph solve are sharded")
     p.add_argument("--trajectory", default="loop",
                    choices=["loop", "figure8", "corridor"])
     p.add_argument("--scan-hz", type=float, default=None, dest="scan_hz")
@@ -755,10 +785,7 @@ def parser() -> argparse.ArgumentParser:
                    help="write a trajectory / loop / map PNG here (needs "
                         "matplotlib)")
     p.add_argument("-v", "--verbose", action="store_true")
-    for flag, item in _NOT_PORTED.items():
-        p.add_argument(flag, nargs="?", action=_NotPorted,
-                       help=f"not ported yet (ROADMAP.md queue 1 item "
-                            f"{item})")
+    p.set_defaults(mesh=None)  # main sets this rank's mesh
     return p
 
 
@@ -769,18 +796,35 @@ def main(argv=None):
         p.error("--resume is supported in integrated (--kitti) mode")
     if args.plot:
         require_matplotlib()
+    if not (args.sim or args.kitti or args.bag or (args.scans and args.poses)):
+        p.error("pick a mode: --sim | --kitti DIR | --bag FILE | "
+                "--scans DIR --poses F")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.devices and args.devices > 1 and world != args.devices:
+        p.error(f"--devices {args.devices} runs under torchrun "
+                f"--nproc-per-node {args.devices}; this process's "
+                f"WORLD_SIZE is {world}")
+    args.mesh = _build_mesh(args)
+    try:
+        if args.mesh is not None:
+            args.device = str(args.mesh.device)
+        return _run(args)
+    finally:
+        if args.mesh is not None:
+            args.mesh.close()
+
+
+def _run(args) -> int:
     if args.sim:
         pipe, report = run_sim(args)
     elif args.kitti:
         pipe, report = run_kitti(args)
     elif args.bag:
         pipe, report = run_bag(args)
-    elif args.scans and args.poses:
-        pipe, report = run_parity(args)
     else:
-        p.error("pick a mode: --sim | --kitti DIR | --bag FILE | "
-                "--scans DIR --poses F")
-
+        pipe, report = run_parity(args)
+    if not _lead(args):
+        return 0
     if args.checkpoint and "checkpoint" not in report:
         save_checkpoint(pipe, args.checkpoint)
         report["checkpoint"] = args.checkpoint

@@ -3,8 +3,7 @@ pose-graph pipeline and the CLI's exports, with the loaders of the
 reference's YAML files.
 
 The same fields and defaults as the JAX package's ``utils/config.py``
-(the reference node's *effective* values), except the sharded solve's
-threshold (the device mesh is not ported yet).  The loaders reproduce the
+(the reference node's *effective* values).  The loaders reproduce the
 reference node's parameter reads exactly: three keys are typo'd in its
 source —
 ``/keyframe/nusubmap_keyframes`` (fast_lio_sam_qn.cpp:19),
@@ -180,6 +179,11 @@ class PipelineConfig:
     # Huber threshold on loop factors in the pose-graph solve; <= 0
     # restores the reference's raw isotropic-variance weighting
     robust_delta: float = 1.0
+    # with a device mesh of more than one rank, the keyframe solve is the
+    # factor-sharded one (parallel/spmd.py pgo_optimize_full) from this
+    # many factors (nodes + loops + prior); below it the single solve, the
+    # same math, wins on latency (the collectives dominate a small graph)
+    pgo_shard_min_factors: int = 512
 
     def apply_strict_parity(self) -> "PipelineConfig":
         """Turn off, in place, every gate the reference lacks, so that loop

@@ -12,6 +12,8 @@ import dataclasses
 import filecmp
 import json
 import os
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -22,7 +24,7 @@ from fast_lio_sam_qn_tpu.utils import config as jconfig
 from fast_lio_sam_qn_tpu.utils import io as jio
 from fast_lio_sam_qn_tpu.runtime import rosbag as jrosbag
 from fast_lio_sam_qn_tpu_torch import run
-from fast_lio_sam_qn_tpu_torch.utils import config, io, rosbag
+from fast_lio_sam_qn_tpu_torch.utils import config, io, rosbag, sim
 
 torch.set_num_threads(1)
 
@@ -66,9 +68,8 @@ FAST_LIO_YAML = {
                 "dense_publish_en": True, "scan_bodyframe_pub_en": True},
     "pcd_save": {"pcd_save_en": False, "interval": -1},
 }
-# the field of the JAX package's config that belongs to the sharded solve,
-# which is not ported; no loader sets it
-JAX_ONLY = {"pgo_shard_min_factors"}
+# fields of the JAX package's config that the port lacks: none
+JAX_ONLY = set()
 # the report of the JAX CLI's --sim mode (fast_lio_sam_qn_tpu/run.py:
 # 284-290, plus the export directory)
 SIM_REPORT_KEYS = {"mode", "scans", "keyframes", "loops_accepted",
@@ -368,6 +369,57 @@ def test_main_sim_exports_and_reports(tmp_path, capsys):
     assert (dest / "sequence" / "poses_kitti.txt").exists()
 
 
+def _parity_dir(root, n=10, points=1024):
+    """Body-frame scans (xyzi .bin) of a 20 m room, 2 m apart along x and
+    stamped 0.1 s apart (so no loop candidate clears the 30 s gap), with
+    their poses and stamps, as parity mode reads them."""
+    world = sim.World.room(size=20.0, height=5.0, n_boxes=8, seed=4)
+    os.makedirs(root / "scans")
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i in range(n):
+        poses[i, 0, 3] = 2.0 * i - 9.0
+        scan, _ = sim.simulate_scan(world, poses[i], n_points=points,
+                                    noise=0.01, seed=300 + i)
+        np.column_stack([scan, np.zeros(len(scan))]).astype(
+            np.float32).tofile(str(root / "scans" / f"{i:06d}.bin"))
+    io.save_poses_kitti(str(root / "poses.txt"), poses)
+    np.savetxt(str(root / "stamps.txt"), np.arange(n) * 0.1)
+    return ["--scans", str(root / "scans"), "--poses",
+            str(root / "poses.txt"), "--stamps", str(root / "stamps.txt"),
+            "--preset", "sim", "--device", "cpu"]
+
+
+def test_devices_parity_run_over_two_gloo_ranks(tmp_path, capsys):
+    """tests/test_run_cli.py:226-244 on the port: ``torchrun
+    --nproc-per-node 2`` of the CLI in parity mode with ``--devices 2
+    --device cpu`` (two gloo ranks).  Both ranks exit 0, rank 0 alone
+    prints the report, and its exports equal a one-process run's with
+    ``--loop-batch 2`` byte for byte (below ``pgo_shard_min_factors``
+    every rank runs the single solve on the same data)."""
+    common = _parity_dir(tmp_path)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env.update(PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "fast_lio_sam_qn_tpu_torch.run",
+         *common, "--devices", "2", "--out", str(tmp_path / "mesh")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    mesh = json.loads(proc.stdout)  # one report: rank 0's
+    assert run.main(common + ["--loop-batch", "2", "--out",
+                              str(tmp_path / "one")]) == 0
+    one = json.loads(capsys.readouterr().out)
+    assert mesh["mode"] == "parity" and mesh["scans"] == 10
+    for key in ("keyframes", "loops_accepted", "loop_attempts"):
+        assert mesh[key] == one[key], key
+    assert mesh["keyframes"] == 10
+    for name in ("poses_kitti.txt", "poses_tum.txt"):
+        _same_files(os.path.join(mesh["exported_to"], name),
+                    os.path.join(one["exported_to"], name))
+
+
 def test_main_auto_save_and_no_auto_save(tmp_path, monkeypatch, capsys):
     """Without --out the save flags export to ./results/<seq_name>, as the
     reference's destructor; --no-auto-save skips it."""
@@ -410,14 +462,32 @@ def test_plot_without_matplotlib_stops_before_the_run(monkeypatch):
     assert exc.value.name == "matplotlib"
 
 
-@pytest.mark.parametrize("flag", sorted(run._NOT_PORTED))
-def test_unported_flags_stop_with_their_roadmap_item(flag, capsys):
+def test_explicit_loop_batch_zero_survives_devices():
+    """tests/test_run_cli.py:247-262 on the port: an explicit `--loop-batch
+    0` (the reference's latest-keyframe timer) survives --devices, and an
+    absent one becomes one lane a rank; both as the JAX CLI assembles
+    them."""
+    from fast_lio_sam_qn_tpu.run import _get_pipeline_config as jget
+
+    for argv, want in ((["--loop-batch", "0", "--devices", "8"], 0),
+                       (["--devices", "8"], 8), (["--devices", "1"], 0)):
+        args = run.parser().parse_args(argv)
+        got = run._get_pipeline_config(args, "sim")
+        assert got.loop.loop_batch == want, argv
+        _assert_same_config(got, jget(args, "sim"))
+
+
+def test_devices_needs_torchrun_world(monkeypatch, capsys):
+    """--devices N > 1 outside a process group of N ranks stops before the
+    run and names both numbers."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(run, "run_sim", lambda args: pytest.fail("ran"))
     with pytest.raises(SystemExit) as exc:
-        run.main(["--sim", flag, "x", "--device", "cpu"])
-    assert exc.value.code != 0
+        run.main(["--sim", "--devices", "2", "--device", "cpu"])
+    assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert f"{flag} is not ported yet" in err
-    assert f"queue 1 item {run._NOT_PORTED[flag]}" in err
+    assert "--devices 2 runs under torchrun --nproc-per-node 2" in err
+    assert "WORLD_SIZE is 1" in err
 
 
 # every flag of the dataset modes: (argv, the mode it reaches, the parsed
@@ -449,6 +519,7 @@ PORTED_FLAGS = {
                            "run_kitti", "checkpoint_every", 5),
     "--resume": (["--kitti", "D", "--resume", "R"], "run_kitti", "resume",
                  "R"),
+    "--devices": (["--sim", "--devices", "1"], "run_sim", "devices", 1),
 }
 
 

@@ -52,6 +52,7 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "fast_lio_sam_qn_tpu_torch.models.loop_closure" in mods
     assert "fast_lio_sam_qn_tpu_torch.utils.sim" in mods
+    assert "fast_lio_sam_qn_tpu_torch.parallel.spmd" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
