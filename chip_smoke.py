@@ -1,8 +1,9 @@
 """Drive the PyTorch port's loop-closure attempt (both FPFH backends), its
 pose-graph pipeline, its per-scan LIO (both map backends, the extrinsic
 co-estimated), its CLI (``--sim`` and the dataset modes ``--kitti``,
-``--scans/--poses``, ``--bag``, checkpoint / resume), the 1,600-scan
-long run and the device mesh (``parallel/``) on one CUDA card.
+``--scans/--poses``, ``--bag``, checkpoint / resume), its benchmark
+(``bench.py``), the 1,600-scan long run and the device mesh
+(``parallel/``) on one CUDA card.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -10,7 +11,7 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
     python3 chip_smoke.py --trace-fpfh-order   # phase 6 on three FPFH
                                                # row orders, loop events
     # on a machine with N cards: the mesh over NCCL, one rank a card
-    # (``mesh_cards``: phase 23's programs, then phase 24's run over N)
+    # (``mesh_cards``: phase 24's programs, then phase 25's run over N)
     python3 -m torch.distributed.run --standalone --nproc-per-node N \
         chip_smoke.py --mesh-cards
 
@@ -78,7 +79,17 @@ script exits non-zero:
    candidates, the pose-graph solve at full capacity and the pipeline's
    feeds, with CUDA events (median of 10 calls) or the host clock where a
    host read ends the call;
-9. knn_fpfh: the kNN FPFH backend.  K1 at k = 48 and 64 (F = 3) on the
+9. bench: the port's benchmark entry point (``fast_lio_sam_qn_tpu_torch.
+   bench.measure``) at full size: its kernel asserts (K1 at k = 15 against
+   ``brute_knn``, K2 against K1 bit for bit, the batched K2b and K3b-K5b
+   lane by lane), ``full_match`` in both matching modes against the
+   ground-truth gate, the single-call, steady-state and advanced times per
+   match, then the product run (256 prefill keyframes, 80 live scans at
+   the kitti width through the LIO and the pipeline, at least one live
+   loop attempt) with every launch counter reset just before its timed
+   window and read just after: K1-K5 must each launch there; the record
+   is logged;
+10. knn_fpfh: the kNN FPFH backend.  K1 at k = 48 and 64 (F = 3) on the
    self-search of the bench clouds at the bench's and the pipeline's
    paddings, and K1b at k = 15, 48, 64 on 4 jittered lanes, equal to
    their plain versions bit for bit (each lane to K1); the four loop
@@ -93,43 +104,43 @@ script exits non-zero:
    48 timed (call and device ms) against their plain versions, their bound
    and ``cdist`` + ``topk``, and K1 at k = 64, F = 33 on the kNN
    descriptors;
-10. grid_cov: ``gicp.plane_covariances(backend="grid")`` of a loop pair's
+11. grid_cov: ``gicp.plane_covariances(backend="grid")`` of a loop pair's
    clouds on the card against the CPU (the same neighbours, equal valid
    masks, covariances within 1e-5 but where the normal is ill-defined),
    then ``gicp.align(cov_backend="grid")`` within 2 cm / 0.15 rad;
-11. lio_golden: the 240-scan sim golden through the port, ``run.
+12. lio_golden: the 240-scan sim golden through the port, ``run.
    sim_lio_stream`` (the "sim" preset) replayed into ``FastLioSamQnPipeline``
    with the golden's capacities: 34 keyframes, 4-8 committed pairs, 12 loop
    events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); LIO ms per
    scan and its stage spans (CUDA events), feed ms, peak memory;
-12. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
+13. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
    0.5 m) on a straight drive, 10 warm and 20 timed scans: every scan
    after the first matches planes, the final position error within 2x the
    CPU run's (``KITTI_CPU_ERR``); ms per scan and stage spans, host syncs
    and kernels per scan, peak memory;
-13. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
+14. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
    poses within 1e-4 m / 1e-4 rad; each scan from the CPU's state gives
    the CPU's match count;
-14. lio_repeat: one scan at the sim width twice from one state, the map,
+15. lio_repeat: one scan at the sim width twice from one state, the map,
    nav state and P bit-identical; host syncs and kernels per scan;
-15. lio_point: the point-map backend at the sim width: 5 scans on the card
-   and on the CPU as in 13 (free-running only while the two maps hold the
+16. lio_point: the point-map backend at the sim width: 5 scans on the card
+   and on the CPU as in 14 (free-running only while the two maps hold the
    same voxels), a bit-identical repeat, and a 60-scan stream whose
    largest position error stays within 1.5x the JAX package's
    (``POINT_JAX_ERR``); ms per scan, stage spans, syncs, kernels, memory;
-16. lio_extrinsic: the reference's extrinsic convergence test
+17. lio_extrinsic: the reference's extrinsic convergence test
    (tests/test_extrinsic.py:108-212) on the card with its tolerances, and
    the same timings;
-17. cli_sim: ``run.main`` in-process as a user starts it (``--sim
+18. cli_sim: ``run.main`` in-process as a user starts it (``--sim
    --trajectory corridor --n-scans 40 --out DIR``: rc 0, >= 5 keyframes,
    ATE < 1 m, the exports in DIR), then 170 scans of the loop, whose loop
    attempts launch K1-K5; every kernel against its plain version, as in
    3, on the clouds of that run's first and last tick at its capacities;
-18. native_runtime: the native host runtime (``runtime/runtime.cpp``)
+19. native_runtime: the native host runtime (``runtime/runtime.cpp``)
    built into build/runtime/ and in use; its scan decoders, loader, sync
    pairs and LZ4 frames against the Python versions; bag ingest rates at
    65,536-point scans (PointCloud2 / Livox, none / bz2 / lz4 chunks);
-19. cli_kitti: a KITTI-style directory (``tools/datasets.py``: 360 scans of
+20. cli_kitti: a KITTI-style directory (``tools/datasets.py``: 360 scans of
    131,072 rays in the LiDAR frame of the kitti preset's extrinsic, 100 Hz
    IMU from a standstill, the golden's room, a 7 m loop every 30 s) through
    ``run.main(["--kitti", DIR, "--preset", "kitti", "--out", OUT])``: the
@@ -137,21 +148,21 @@ script exits non-zero:
    against their plain versions on its first and last tick's clouds; LIO
    and feed ms, scans/s, memory; then 60 scans straight against 30 with
    ``--checkpoint`` and 30 after ``--resume`` (equal keyframes, 1e-4 m);
-20. cli_parity: the same scans in the body frame with drifted odometry,
+21. cli_parity: the same scans in the body frame with drifted odometry,
    ``--stamps``, ``--odom-times`` missing 5 stamps and ``--loop-batch 4``:
    5 dropped, K1b-K5b launched and held against their plain versions on a
    batched tick's lanes, the corrected ATE below the odometry's;
-21. cli_bag: a 60-scan full-width bag (PointCloud2 with a time field, Imu
+22. cli_bag: a 60-scan full-width bag (PointCloud2 with a time field, Imu
    at 200 Hz, lz4 chunks): ``--bag`` equal to ``bag_convert`` + ``--kitti``
    within 1e-3 m, ``--odom-topic`` drop accounting, a Livox bag end to end;
-22. longrun: tools/longrun.py's 1,600-scan course (a 26 m radius loop at
+23. longrun: tools/longrun.py's 1,600-scan course (a 26 m radius loop at
    4 m/s, 3.9 laps, 10 Hz, 2,048-point scans) through ``sim_lio_stream``
    and the pipeline on the card, every pin of
    tests/test_golden_longrun.py held (400 keyframes, 64 attempts, 39-59
    commits, ATE 0.1274 m +- 30 %, odometry ATE < 0.05 m, the keyframe
    store 128 -> >= 512, the loop factors 8 -> >= 32); ms per scan, LIO
    and feed spans, peak memory;
-23. mesh ws1: each program of ``parallel/spmd.py`` on a one-rank NCCL
+24. mesh ws1: each program of ``parallel/spmd.py`` on a one-rank NCCL
    mesh in this process, through the code it runs at any world size,
    against its single-device counterpart, counters reset just before and
    read just after each: ``sharded_gicp_align`` on the bench pair at the
@@ -161,12 +172,12 @@ script exits non-zero:
    ``loop_batch`` lanes (bit for bit), ``pgo_optimize_full`` at full
    capacity, 2 and 5 GN steps (within 1e-4 of ``pgo.optimize``, a repeat
    bit for bit); each timed beside its counterpart (CUDA events);
-24. mesh ws2: the pipeline run of 6 over 2 ranks that share the card over
+25. mesh ws2: the pipeline run of 6 over 2 ranks that share the card over
    gloo (spawned processes; ``pgo_shard_min_factors`` lowered to 16):
    ``check_pipeline``'s gates with 12-13 commits, both ranks' trajectory
    and event digests equal, the sharded solve engaged, every batched
    kernel launched; the run's time and its host-staged collectives';
-25. prints the kernel table as one JSON line (time, launches on the main
+26. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
    result line.  The LIO launches none of K1-K5 (its reference has no
    Pallas kernel).  K3, K4 and K5 skip what the radius prune rules out, so
@@ -177,20 +188,15 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
 
-GATE_T, GATE_R = 0.06, 0.01
 REPO = "fast_lio_sam_qn_tpu_torch"
 LANES = 3                   # batched parity at the bench caps
 PIPE_SCANS, PIPE_POINTS = 160, 16384
-# the H100 SXM's published peaks: fp32 outside
-# the tensor cores, and HBM3
-FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
 
 T0 = time.perf_counter()
@@ -203,10 +209,12 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.bench import card_line as bench_card
+
+    return bench_card(torch.device("cuda"))
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -455,72 +463,6 @@ def agg_library(p, m, v, spn):
     wt = torch.where(w, torch.rsqrt(d2.clamp_(min=1e-12)), 0.0)
     return torch.cat([wt @ spn, w.sum(-1, keepdim=True, dtype=p.dtype)],
                      dim=-1)
-
-
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the operations over the fp32
-    peak and the bytes over the HBM rate."""
-    t_ops = float(flops) / FP32_FLOPS * 1e3
-    t_bytes = float(nbytes) / HBM_BYTES_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def per_run(mask, rows):
-    """Valid rows in each run of ``rows`` consecutive rows (float64)."""
-    import torch
-
-    pad = torch.nn.functional.pad(mask.double(), (0, -mask.shape[0] % rows))
-    return pad.view(-1, rows).sum(-1)
-
-
-def knn_bound(q, qm, db, dbm, k, keep=None):
-    """A kNN kernel's bound over this run's data: 2F + 2 flops (the cross
-    term's F products and the d2 expansion) for each (valid query, valid db
-    row) pair, or for each pair of a kept (block, tile) for K2 (``keep``,
-    one bitmap per lane); each valid row's F + 1 floats and mask byte read
-    once, every output row written once."""
-    import torch
-
-    from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
-
-    if q.dim() == 2:
-        q, qm, db, dbm = q[None], qm[None], db[None], dbm[None]
-        keep = None if keep is None else [keep]
-    f = q.shape[-1]
-    nq = qm.sum(-1).double()
-    nd = dbm.sum(-1).double()
-    if keep is None:
-        pairs = float((nq * nd).sum())
-    else:
-        pairs = 0.0
-        for qml, dml, kp in zip(qm, dbm, keep):
-            cq = per_run(qml, knn_cuda.BAND_BLOCK)
-            cd = per_run(dml, knn_cuda.BAND_TILE)
-            pairs += float(cq @ kp.double() @ cd)
-    nbytes = (float((nq + nd).sum()) * (4 * f + 5)
-              + q.shape[0] * q.shape[1] * k * 8)
-    return bound(pairs * (2 * f + 2), nbytes)
-
-
-def radius_bound(p, qm, dbm, radii, pair_flops, hit_flops, row_in, row_out):
-    """An FPFH kernel's bound over this run's data, per lane: 9 flops of
-    distance test for each (valid query, valid db point) pair plus
-    hit_flops[r] for each pair within radii[r]; each valid row's row_in
-    bytes read once, every output row's row_out bytes written once."""
-    import torch
-
-    if p.dim() == 2:
-        p, qm, dbm = p[None], qm[None], dbm[None]
-    flops = 0.0
-    rows_in = 0.0
-    for pl, ql, dl in zip(p, qm, dbm):
-        a, b = pl[ql].double(), pl[dl].double()
-        d2 = torch.cdist(a, b) ** 2
-        flops += pair_flops * d2.numel()
-        for r, hf in zip(radii, hit_flops):
-            flops += hf * float((d2 <= r * r).sum())
-        rows_in += float(ql.sum())
-    return bound(flops, rows_in * row_in + p.shape[0] * p.shape[1] * row_out)
 
 
 class FpfhSorted(NamedTuple):
@@ -926,17 +868,6 @@ def batched_parity(store, src_cap, dst_cap, errs, lanes=LANES, tick=None):
 # the main path
 # ---------------------------------------------------------------------------
 
-def gate_error(T, drift):
-    """(m, rad) error of a registration T against the bench pair's truth."""
-    import torch
-
-    from fast_lio_sam_qn_tpu_torch.ops import se3
-
-    err = se3.se3_log(T.double().cpu() @ torch.tensor(drift))
-    return float(torch.linalg.norm(err[3:])), float(torch.linalg.norm(
-        err[:3]))
-
-
 def pose_gap(a, b):
     """(m, rad) between two (4, 4) poses."""
     import torch
@@ -949,6 +880,8 @@ def pose_gap(a, b):
 
 def gate(reg, drift, label):
     import torch
+
+    from fast_lio_sam_qn_tpu_torch.bench import GATE_R, GATE_T, gate_error
 
     T = reg.pose_between
     if T.shape != (4, 4) or not bool(torch.isfinite(T).all()):
@@ -2311,6 +2244,36 @@ def dataset_phases(dev, card, errs):
 
 # K1 at k > 32 (the kNN FPFH's shared search, k = max(k_feat, k_normal) by
 # default 48, and the largest the kernel takes)
+def bench_phase(dev, card):
+    """Phase 9: ``bench.measure`` at full size, every launch counter reset
+    just before the product run's timed window and read just after; K1-K5
+    must each launch there (from the live loop ticks).  Returns the
+    record."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch import bench
+
+    live = {}
+
+    @contextlib.contextmanager
+    def live_window():
+        reset_launches()
+        yield
+        torch.cuda.synchronize()
+        live.update(launches_now())
+
+    t0 = time.perf_counter()
+    record = bench.measure(dev, card, live_window=live_window)
+    log(f"bench record: {json.dumps(record)}")
+    log(f"bench live-window launches: {live}")
+    missing = [k for k in SINGLE if not live.get(k)]
+    if missing:
+        raise AssertionError(f"bench: {missing} never launched in the live "
+                             f"window: {live}")
+    log(f"bench: {time.perf_counter() - t0:.1f} s [{card}]")
+    return record
+
+
 BIG_K = (48, 64)
 KNN_LANES = 4       # the pipeline's loop_batch
 LONGRUN_SCANS = 1600
@@ -2373,6 +2336,7 @@ def knn_fpfh(dev, card, store, drift, errs):
     Returns (single-attempt launches, batched launches, timing inputs)."""
     import torch
 
+    from fast_lio_sam_qn_tpu_torch.bench import gate_error
     from fast_lio_sam_qn_tpu_torch.models.loop_closure import (
         LoopClosure, _single_frame)
     from fast_lio_sam_qn_tpu_torch.ops import fpfh, knn, knn_cuda
@@ -2483,6 +2447,8 @@ def big_k_timings(kin, card):
     its bound; and K1 at k = 64, F = 33 on the kNN FPFH descriptors, logged.
     Returns (ms, library_ms, bounds) keyed as BY_K."""
     import torch
+
+    from fast_lio_sam_qn_tpu_torch.tools.roofline import knn_bound
 
     big = {key: ("lanes" if base == "knn_b" else "self", k)
            for key, (base, k) in BY_K.items()}
@@ -2931,6 +2897,8 @@ def main() -> int:
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
     from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+    from fast_lio_sam_qn_tpu_torch.tools.roofline import (knn_bound,
+                                                          radius_bound)
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -3141,6 +3109,7 @@ def main() -> int:
         log(f"time attempt {label}: {t:.3f} ms per fetch_and_perform "
             f"[{card}]")
     pipeline_timings(pipe, multi, feeds, card)
+    bench_phase(dev, card)
 
     t0 = time.perf_counter()
     k_single, k_batched, kin = knn_fpfh(dev, card, store, drift, errs)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one
+process a source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build
 runs at first use, into ``build/kernels/`` beside the package, and is keyed
 on a hash of the sources and flags, so a stale library is never loaded.
 Loading needs a CUDA device: without one it raises.  There is no fallback
@@ -25,9 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC")
 
 MAX_BATCH = 65535  # gridDim.y
 
@@ -79,19 +80,32 @@ def build() -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        work = Path(work)
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            with open(work / f"{src.stem}.log", "w") as out:
+                jobs.append((obj, out.name, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=out, stderr=subprocess.STDOUT)))
+        codes = [proc.wait() for _, _, proc in jobs]
+        log = "".join(Path(name).read_text() for _, name, _ in jobs)
+        tmp = work / "lib.so"
+        if not any(codes):
+            link = subprocess.run(
+                [nvcc, *ARCH, "-shared", "-o", str(tmp),
+                 *[str(obj) for obj, _, _ in jobs]],
+                capture_output=True, text=True)
+            codes.append(link.returncode)
+            log += link.stdout + link.stderr
+        path.with_suffix(".log").write_text(log)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
+        os.replace(tmp, path)
+    return path, time.perf_counter() - t0
 
 
 def ptxas_entries(text: str) -> list[dict]:

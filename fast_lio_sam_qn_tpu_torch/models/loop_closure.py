@@ -190,7 +190,7 @@ class LoopClosure:
         FPFH radius moments, the src ones rotated into the coarse-aligned
         frame, C' = R C R^T; on the kNN backend ``icp_alignment`` searches
         them.  Returns (final_T (B, 4, 4), fitness (B,), valid (B,), Quatro
-        converged (B,))."""
+        converged (B,), GICP converged (B,))."""
         qc = self.cfg.quatro
         radii = (qc.fpfh_normal_radius, qc.fpfh_radius)
         stream = qc.fpfh_backend == "stream"
@@ -248,7 +248,7 @@ class LoopClosure:
         valid = q.converged & fine_valid
         if qc.estimating_scale:
             valid = valid & (torch.abs(q.scale - 1.0) <= qc.scale_gate)
-        return final_T, fine.fitness, valid, q.converged
+        return final_T, fine.fitness, valid, q.converged, fine.converged
 
     def _register(self, store: KeyframeStore, qs, cs, batched: bool
                   ) -> RegistrationOutput:
@@ -266,7 +266,7 @@ class LoopClosure:
                 enable_submap_matching=c.enable_submap_matching), qs, safe)
         if c.enable_quatro:
             vp = store.poses_corrected[:, :3, 3]
-            T, score, valid, converged = self.coarse_to_fine_alignment(
+            T, score, valid, converged, _ = self.coarse_to_fine_alignment(
                 src, src_mask, dst, dst_mask, vp[qs], vp[safe],
                 batched=batched)
         else:

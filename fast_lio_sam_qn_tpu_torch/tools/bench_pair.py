@@ -23,18 +23,27 @@ N_SCAN = 16384
 SRC_CAP, DST_CAP = 4352, 5632              # the benchmark's voxelized clouds
 PIPE_SRC_CAP, PIPE_DST_CAP = 16384, 32768  # Capacities() defaults
 DRIFT_TWIST = (0.0, 0.0, 0.15, 1.5, -1.0, 0.1)
+YAW2 = 0.5                                 # scan 2's heading [rad]
 
 
-def build_store(device):
-    """(store, drift (4, 4) float64 numpy) on ``device``."""
+def scans(R2):
+    """The pair's two scans ((N_SCAN, 3) float32 in the LiDAR frame, NaN
+    rows for no hit) with their float64 poses, ((s1, T1), (s2, T2)); R2 is
+    scan 2's rotation, a yaw of YAW2, in the precision the caller wants."""
     world = sim.World.room(size=24.0, height=5.0, n_boxes=16, seed=5)
     T1 = np.eye(4)
     T1[:3, 3] = [2.0, -1.5, 1.5]
     T2 = np.eye(4)
-    T2[:3, :3] = sim.so3_exp_np(np.array([0.0, 0.0, 0.5]))
+    T2[:3, :3] = R2
     T2[:3, 3] = [4.0, -3.0, 1.5]
     s1, _ = sim.simulate_scan(world, T1, n_points=N_SCAN, noise=0.01, seed=1)
     s2, _ = sim.simulate_scan(world, T2, n_points=N_SCAN, noise=0.01, seed=2)
+    return (s1, T1), (s2, T2)
+
+
+def build_store(device):
+    """(store, drift (4, 4) float64 numpy) on ``device``."""
+    (s1, T1), (s2, T2) = scans(sim.so3_exp_np(np.array([0.0, 0.0, YAW2])))
     drift = se3.se3_exp(torch.tensor(DRIFT_TWIST)).double().numpy()
     p1, m1 = sim.pad_cloud(s1, N_SCAN)
     p2, m2 = sim.pad_cloud(s2, N_SCAN)
