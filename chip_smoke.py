@@ -88,7 +88,12 @@ script exits non-zero:
    the kitti width through the LIO and the pipeline, at least one live
    loop attempt) with every launch counter reset just before its timed
    window and read just after: K1-K5 must each launch there; the record
-   is logged;
+   is logged; then the roofline report (``tools/roofline.py report``) on
+   the bench pair: per cloud and FPFH stage the kept (block, tile) pairs,
+   the kernel's bound as designed and the in-radius pair bound beside its
+   device time, then the GICP NN budget and the surfel insert's census
+   beside the insert's time; a share of either bound above 1.05 of the
+   measured time (a count that is wrong) or a missing measurement fails;
 10. knn_fpfh: the kNN FPFH backend.  K1 at k = 48 and 64 (F = 3) on the
    self-search of the bench clouds at the bench's and the pipeline's
    paddings, and K1b at k = 15, 48, 64 on 4 jittered lanes, equal to
@@ -1111,37 +1116,6 @@ def lane_vs_single(pipe, tick):
     log("pgo.optimize (5 GN steps) repeats bit for bit")
 
 
-# the port's kernels, as the profiler names them (csrc/*.cu)
-PORT_KERNELS = ("knn1_kernel", "knnk_warp_kernel", "banded1_kernel",
-                "bandedk_kernel", "tile_bbox_kernel", "merge_slices",
-                "moments_kernel", "spfh_kernel", "agg_kernel")
-
-
-def device_ms(fn, reps: int = 10, windows: int = 3):
-    """Device time per call of ``fn`` spent in the port's own kernels
-    (torch.profiler, after one warm-up call), without the wrapper's host
-    time and its small torch ops; the first of up to ``windows``
-    profiling windows that records any (a window now and then records no
-    device event), else None."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0.0)
-                 for e in prof.key_averages()
-                 if any(k in e.key for k in PORT_KERNELS))
-        if us > 0:
-            return us / reps / 1e3
-    return None
-
-
 def kernel_ms(timing):
     """A kernel's time: its device time where the profiler gave one, else
     the CUDA-event time of its wrapper's call."""
@@ -1153,6 +1127,8 @@ def time_pairs(timed, card, plain_reps=10):
     the better of each pair of medians (CUDA events around the wrapper's
     call; ``plain_reps`` calls a median for the plain version), then the
     kernels' own device time (``device_ms``)."""
+    from fast_lio_sam_qn_tpu_torch.tools.roofline import device_ms
+
     ms = {}
     for name, (kern, plain) in timed.items():
         a = cuda_ms(plain, plain_reps)
@@ -2274,6 +2250,48 @@ def bench_phase(dev, card):
     return record
 
 
+ROOFLINE_SHARE = 1.05   # a bound above the measured time: a wrong count
+
+
+def roofline_phase(dev, card):
+    """``tools/roofline.py report`` on the bench pair with the kernels
+    timed on the card (CUDA graph replays), every row logged; fails if a
+    stage's time is not positive or either bound reads above
+    ``ROOFLINE_SHARE`` of it.  Then K3 on the bench source timed both ways,
+    torch.profiler (``device_ms``, as the kernel table's device times) and
+    graph replays, to show what the profiler still records this late in
+    the run.  Returns the rows."""
+    from fast_lio_sam_qn_tpu_torch import bench
+    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    from fast_lio_sam_qn_tpu_torch.tools import roofline
+
+    t0 = time.perf_counter()
+    rows = roofline.report(dev, measure=True, say=log)
+    for r in rows:
+        log(f"roofline {r['cloud']}:{r['stage']}: {json.dumps(r)}")
+        if not r["measured_ms"] > 0:
+            raise AssertionError(f"roofline: {r['cloud']}:{r['stage']} has "
+                                 f"no device time")
+        for share in ("bound_share", "pair_share"):
+            if r[share] > ROOFLINE_SHARE:
+                raise AssertionError(
+                    f"roofline: {r['cloud']}:{r['stage']} {share} "
+                    f"{r[share]:.4f} > {ROOFLINE_SHARE}: the bound's count "
+                    f"is wrong")
+    (va, vma, _), _, _ = bench.build_pair(dev)
+    p, m = roofline._sorted_cloud(va, vma, dev)
+    prune = fs.radius_prune(p[None], m[None])
+
+    def k3():
+        return fs.moments(p, m, 0.9, 0.6, prune)
+
+    log(f"roofline: K3 on the bench source, torch.profiler "
+        f"{roofline.device_ms(k3)} ms, CUDA graph {roofline.graph_ms(k3)} ms "
+        f"[{card}]")
+    log(f"roofline: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
 BIG_K = (48, 64)
 KNN_LANES = 4       # the pipeline's loop_batch
 LONGRUN_SCANS = 1600
@@ -2898,7 +2916,7 @@ def main() -> int:
     from fast_lio_sam_qn_tpu_torch.ops import knn, knn_cuda
     from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
     from fast_lio_sam_qn_tpu_torch.tools.roofline import (knn_bound,
-                                                          radius_bound)
+                                                          stage_pair_bound)
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -3065,34 +3083,22 @@ def main() -> int:
     # K3-K5 skip the pairs the radius prune rules out: their bound counts
     # the in-radius pairs' math only (the all-pairs figure, with 9 flops of
     # distance test per valid pair, beside it in the log)
-    all_pairs = {
-        "moments": radius_bound(sp, sm_, sm_, (0.9, 0.6), 9, (16, 10), 13,
-                                80),
-        "moments_b": radius_bound(bsrt.p, bsrt.m, bsrt.m, (0.9, 0.6), 9,
-                                  (16, 10), 13, 80),
-        "spfh": radius_bound(sp, sm_, keep, (1.5,), 9, (75,), 26, 136),
-        "agg": radius_bound(sp, sm_, keep, (1.5,), 9, (68,), 146, 136),
-        "spfh_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 9, (75,),
-                               26, 136),
-        "agg_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 9, (68,),
-                              146, 136)}
+    fp_in = {"moments": (sp, sm_, sm_), "spfh": (sp, sm_, keep),
+             "agg": (sp, sm_, keep),
+             "moments_b": (bsrt.p, bsrt.m, bsrt.m),
+             "spfh_b": (bsrt.p, bsrt.m, bkeep_fp),
+             "agg_b": (bsrt.p, bsrt.m, bkeep_fp)}
+    all_pairs = {key: stage_pair_bound(key.split("_")[0], *a, pair_flops=9)
+                 for key, a in fp_in.items()}
     bounds = {
         "knn": knn_bound(*desc_args, 1),
         "knn_banded": knn_bound(*sorted_nn, 1, keep=knn_cuda.block_tile_keep(
             *sorted_nn, 1)),
-        "moments": radius_bound(sp, sm_, sm_, (0.9, 0.6), 0, (16, 10), 13,
-                                80),
-        "spfh": radius_bound(sp, sm_, keep, (1.5,), 0, (75,), 26, 136),
-        "agg": radius_bound(sp, sm_, keep, (1.5,), 0, (68,), 146, 136),
         "knn_b": knn_bound(bdesc, bval, ddesc, dval, 1),
         "knn_banded_b": knn_bound(*bsorted, 1, keep=bkeep),
-        "moments_b": radius_bound(bsrt.p, bsrt.m, bsrt.m, (0.9, 0.6), 0,
-                                  (16, 10), 13, 80),
-        "spfh_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 0, (75,),
-                               26, 136),
-        "agg_b": radius_bound(bsrt.p, bsrt.m, bkeep_fp, (1.5,), 0, (68,),
-                              146, 136),
     }
+    bounds.update({key: stage_pair_bound(key.split("_")[0], *a)
+                   for key, a in fp_in.items()})
     for key, (b_ms, by) in bounds.items():
         old = (f"; all pairs {all_pairs[key][0]:.5f} ms by "
                f"{all_pairs[key][1]}" if key in all_pairs else "")
@@ -3110,6 +3116,7 @@ def main() -> int:
             f"[{card}]")
     pipeline_timings(pipe, multi, feeds, card)
     bench_phase(dev, card)
+    roofline_phase(dev, card)
 
     t0 = time.perf_counter()
     k_single, k_batched, kin = knn_fpfh(dev, card, store, drift, errs)

@@ -180,6 +180,32 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return points @ R.transpose(-1, -2) + t[..., None, :]
 
 
+def rpy_to_rot(rpy: torch.Tensor) -> torch.Tensor:
+    """(..., 3) (roll, pitch, yaw) -> (..., 3, 3) R = Rz(yaw) Ry(pitch)
+    Rx(roll), the ZYX convention of tf createQuaternionFromRPY and gtsam
+    Rot3::RzRyRx."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+                    -1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+                    -1),
+        torch.stack([-sp, cp * sr, cp * cr], -1),
+    ], dim=-2)
+
+
+def rot_to_rpy(R: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``rpy_to_rot``: tf Matrix3x3::getRPY's solution 1,
+    the pitch's sine clipped to [-1, 1]."""
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def pose_distance(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
     """Euclidean translation distance — the keyframe gate's predicate."""
     return torch.linalg.norm(Ta[..., :3, 3] - Tb[..., :3, 3], dim=-1)

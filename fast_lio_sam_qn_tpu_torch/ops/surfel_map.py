@@ -72,8 +72,24 @@ class SurfelMap(NamedTuple):
         return self.mom[:, 1:4]
 
     @property
+    def m2(self) -> torch.Tensor:
+        return _sym_to_mat(self.mom[:, 4:10])
+
+    @property
+    def plane_n(self) -> torch.Tensor:
+        return self.plane[:, :3]
+
+    @property
+    def plane_d(self) -> torch.Tensor:
+        return self.plane[:, 3]
+
+    @property
     def plane_valid(self) -> torch.Tensor:
         return self.plane[:, 4] > 0.5
+
+    @property
+    def halo_dirty(self) -> torch.Tensor:
+        return self.plane[:, 5] > 0.5
 
 
 # a refit marks a voxel halo-dirty when its plane moved by more than these
@@ -117,6 +133,16 @@ def _outer_sym(v: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 6) symmetric outer product [xx yy zz xy xz yz]."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
     return torch.stack([x * x, y * y, z * z, x * y, x * z, y * z], -1)
+
+
+def _sym_to_mat(s: torch.Tensor) -> torch.Tensor:
+    """(..., 6) [xx yy zz xy xz yz] -> (..., 3, 3) symmetric matrix."""
+    xx, yy, zz, xy, xz, yz = (s[..., i] for i in range(6))
+    return torch.stack([
+        torch.stack([xx, xy, xz], -1),
+        torch.stack([xy, yy, yz], -1),
+        torch.stack([xz, yz, zz], -1),
+    ], dim=-2)
 
 
 def _cross_sym(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

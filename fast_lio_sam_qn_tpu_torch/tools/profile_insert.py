@@ -42,6 +42,7 @@ N = 32768
 TABLE = 1 << 19
 RES = 0.5
 HOOD_CAP = 8192
+HALO_CAP = 4096
 KITTI_SCANS = 30            # 10 warm-up scans, then 20 timed
 KITTI_PERIOD = 0.1
 
@@ -105,32 +106,58 @@ def _cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def _random_scans(dev, count: int):
-    """Scans of N points drawn from one fixed random volume (120 x 120 x
-    8 m, 6N points): successive inserts mostly touch existing voxels."""
-    rng = np.random.default_rng(0)
-    world = rng.uniform([-60, -60, -2], [60, 60, 6],
-                        size=(6 * N, 3)).astype(np.float32)
-    for seed in range(count):
-        r = np.random.default_rng(seed)
-        sel = r.choice(len(world), size=N, replace=False)
-        pts = world[sel] + r.normal(0, 0.01, (N, 3)).astype(np.float32)
-        yield torch.from_numpy(pts).to(dev)
+def make_scan(seed, offset=None, device="cpu"):
+    """(points (N, 3), mask (N,)) on ``device``: N points of one fixed
+    random volume (6N points in 120 x 120 x 8 m) with 1 cm noise, so
+    successive inserts mostly touch existing voxels, like a vehicle at ~2 m
+    a scan, instead of all-fresh random voxels.  The JAX package's
+    generator, draw for draw; ``offset``, the scan's nominal position,
+    moves no point there either."""
+    world = np.random.default_rng(0).uniform(
+        [-60, -60, -2], [60, 60, 6], size=(6 * N, 3)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(len(world), size=N, replace=False)
+    pts = world[sel] + rng.normal(0, 0.01, (N, 3)).astype(np.float32)
+    return (torch.from_numpy(pts).to(device),
+            torch.ones(N, dtype=torch.bool, device=device))
 
 
-def stages(dev, reps: int) -> dict:
+def _planar_insert_ms(dev, th: float, reps: int) -> float:
+    """ms of a hood-7 insert into a planar scene's map, where the map
+    converges: 12 scans 2 m apart through the kitti room, then a 13th."""
+    world = sim.World.room(size=120.0, height=8.0, n_boxes=24, seed=7)
+    mp = surfel_map.empty(RES, TABLE, dev)
+    T = np.eye(4)
+    for s in range(12):
+        T[:3, 3] = [2.0 * s, 0.0, 1.5]
+        sp, _ = sim.simulate_scan(world, T, n_points=N, noise=0.01,
+                                  seed=300 + s)
+        spw = torch.from_numpy(sp @ T[:3, :3].T + T[:3, 3]).to(dev)
+        mp = surfel_map.insert(mp, torch.nan_to_num(spw), torch.isfinite(
+            spw).all(-1), th, hood_cap=HOOD_CAP, halo_cap=HALO_CAP,
+            hood_window=7)
+    sp, _ = sim.simulate_scan(world, T, n_points=N, noise=0.01, seed=999)
+    spw = torch.from_numpy(sp @ T[:3, :3].T + T[:3, 3]).to(dev)
+    pmask = torch.isfinite(spw).all(-1)
+    spw = torch.nan_to_num(spw)
+    return _cuda_ms(lambda: surfel_map.insert(
+        mp, spw, pmask, th, hood_cap=HOOD_CAP, halo_cap=HALO_CAP,
+        hood_window=7), reps)
+
+
+def stages(dev, reps: int, names=None) -> dict:
     """ms per insert stage on the random volume and on a planar scene, and
-    per full LIO step at the kitti width."""
+    per full LIO step at the kitti width; ``names``: only these stages
+    (the planar scene and the LIO step are built only when named)."""
     out = {}
     th = float(np.float32(0.1))
-    mask = torch.ones(N, dtype=torch.bool, device=dev)
-    scans = list(_random_scans(dev, 13))
     m = surfel_map.empty(RES, TABLE, dev)
-    for pts in scans[:12]:
-        m = surfel_map.insert(m, pts, mask, th, hood_cap=HOOD_CAP)
+    for seed in range(12):
+        m = surfel_map.insert(m, *make_scan(seed, device=dev), th,
+                              hood_cap=HOOD_CAP)
     torch.cuda.synchronize()
     out["occupied voxels (random volume)"] = int(m.occupied.sum())
-    pts = scans[12]
+    pts, mask = make_scan(12, device=dev)
     coords = voxel_coords(pts, RES)
     slot0, found0 = _locate(m, coords)
     use0 = mask & found0
@@ -146,9 +173,9 @@ def stages(dev, reps: int) -> dict:
 
     timed = {
         "full insert (hood 27)": lambda: surfel_map.insert(
-            m, pts, mask, th, hood_cap=HOOD_CAP, halo_cap=4096),
+            m, pts, mask, th, hood_cap=HOOD_CAP, halo_cap=HALO_CAP),
         "full insert (hood 7)": lambda: surfel_map.insert(
-            m, pts, mask, th, hood_cap=HOOD_CAP, halo_cap=4096,
+            m, pts, mask, th, hood_cap=HOOD_CAP, halo_cap=HALO_CAP,
             hood_window=7),
         "insert without halo": lambda: surfel_map.insert(
             m, pts, mask, th, hood_cap=HOOD_CAP, halo=False),
@@ -170,35 +197,19 @@ def stages(dev, reps: int) -> dict:
                                                             window=3),
     }
     for name, fn in timed.items():
-        out[name] = _cuda_ms(fn, reps)
-
-    # a planar scene, where the map converges
-    world = sim.World.room(size=120.0, height=8.0, n_boxes=24, seed=7)
-    mp = surfel_map.empty(RES, TABLE, dev)
-    T = np.eye(4)
-    for s in range(12):
-        T[:3, 3] = [2.0 * s, 0.0, 1.5]
-        sp, _ = sim.simulate_scan(world, T, n_points=N, noise=0.01,
-                                  seed=300 + s)
-        spw = torch.from_numpy(sp @ T[:3, :3].T + T[:3, 3]).to(dev)
-        mp = surfel_map.insert(mp, torch.nan_to_num(spw), torch.isfinite(
-            spw).all(-1), th, hood_cap=HOOD_CAP, halo_cap=4096,
-            hood_window=7)
-    sp, _ = sim.simulate_scan(world, T, n_points=N, noise=0.01, seed=999)
-    spw = torch.from_numpy(sp @ T[:3, :3].T + T[:3, 3]).to(dev)
-    pmask = torch.isfinite(spw).all(-1)
-    spw = torch.nan_to_num(spw)
-    out["planar steady-state insert (hood 7)"] = _cuda_ms(
-        lambda: surfel_map.insert(mp, spw, pmask, th, hood_cap=HOOD_CAP,
-                                  halo_cap=4096, hood_window=7), reps)
-
-    # the full per-scan LIO step at the kitti preset, on a warmed map
-    lio, state = kitti_lio(dev)
-    for s in range(10):
-        state, _ = lio.process_scan(state, *kitti_inputs(s))
-    inputs = kitti_inputs(10)
-    out["full LIO step (kitti preset)"] = _cuda_ms(
-        lambda: lio.process_scan(state, *inputs), reps)
+        if names is None or name in names:
+            out[name] = _cuda_ms(fn, reps)
+    planar = "planar steady-state insert (hood 7)"
+    if names is None or planar in names:
+        out[planar] = _planar_insert_ms(dev, th, reps)
+    step = "full LIO step (kitti preset)"
+    if names is None or step in names:
+        # the full per-scan LIO step at the kitti preset, on a warmed map
+        lio, state = kitti_lio(dev)
+        for s in range(10):
+            state, _ = lio.process_scan(state, *kitti_inputs(s))
+        inputs = kitti_inputs(10)
+        out[step] = _cuda_ms(lambda: lio.process_scan(state, *inputs), reps)
     return out
 
 

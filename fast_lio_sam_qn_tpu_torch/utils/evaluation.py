@@ -1,4 +1,4 @@
-"""Trajectory evaluation (ATE), numpy — the same arithmetic as the JAX
+"""Trajectory evaluation (ATE / RPE), numpy — the same arithmetic as the JAX
 package's ``utils/evaluation.py``."""
 from __future__ import annotations
 
@@ -31,3 +31,18 @@ def ate_rmse(est: np.ndarray, gt: np.ndarray, align=True) -> float:
         p_est = p_est @ R.T + t
     err = np.linalg.norm(p_est - p_gt, axis=-1)
     return float(np.sqrt(np.mean(err ** 2)))
+
+
+def rpe_rmse(est: np.ndarray, gt: np.ndarray, delta: int = 1):
+    """Relative pose error over a fixed frame delta between pose arrays
+    (N,4,4): (translation RMSE, rotation RMSE in rad)."""
+    t_errs, r_errs = [], []
+    for i in range(len(est) - delta):
+        de = np.linalg.inv(est[i]) @ est[i + delta]
+        dg = np.linalg.inv(gt[i]) @ gt[i + delta]
+        e = np.linalg.inv(dg) @ de
+        t_errs.append(np.linalg.norm(e[:3, 3]))
+        cos = np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1)
+        r_errs.append(np.arccos(cos))
+    return (float(np.sqrt(np.mean(np.square(t_errs)))),
+            float(np.sqrt(np.mean(np.square(r_errs)))))

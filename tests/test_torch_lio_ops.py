@@ -223,6 +223,35 @@ def test_insert_matches_reference(case, ref_maps):
     _assert_maps_agree(m, ref_maps[case], kw.get("hood_window", 27))
 
 
+@pytest.mark.parametrize("case", sorted(INSERT_CASES))
+def test_surfel_accessors_match_reference(case, ref_maps):
+    """m2, plane_n, plane_d and halo_dirty of the JAX package's map after 3
+    inserts, carried across with the converter, against the JAX package's
+    accessors: bit for bit (both slice the same packed columns).  Without
+    the halo nothing clears a dirty bit, so that map holds some."""
+    arrays = ref_maps[case]
+    jm = jsurfel.SurfelMap(*(jnp.asarray(a) for a in arrays), res=RES)
+    m = _port_map(arrays)
+    for name in ("m2", "plane_n", "plane_d", "halo_dirty"):
+        np.testing.assert_array_equal(getattr(m, name).numpy(),
+                                      np.asarray(getattr(jm, name)))
+    assert m.m2.shape == (TABLE, 3, 3)
+    assert bool(m.halo_dirty.any()) or case != "no-halo"
+
+
+def test_make_scan_matches_reference():
+    """tools/profile_insert.make_scan draws the JAX generator's points,
+    exactly (both numpy)."""
+    from fast_lio_sam_qn_tpu.tools import profile_insert as jpi
+    from fast_lio_sam_qn_tpu_torch.tools import profile_insert as pi
+
+    for seed in (0, 7):
+        pts, mask = pi.make_scan(seed, [2.0 * seed, 0, 0])
+        jpts, jmask = jpi.make_scan(seed, [2.0 * seed, 0, 0])
+        np.testing.assert_array_equal(pts.numpy(), np.asarray(jpts))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+
+
 def test_caps_bind_in_the_capped_case(ref_maps):
     """The capped case really compacts: its map differs from the uncapped
     face-hood map (the hood and halo caps changed the result)."""

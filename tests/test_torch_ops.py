@@ -71,6 +71,26 @@ def test_pose_pairs_match_jax(name):
     np.testing.assert_allclose(got, want, atol=GEOM_TOL)
 
 
+def test_rpy_conversions_match_jax():
+    """rpy_to_rot and rot_to_rpy on 64 seeded angles in (-1.2, 1.2) against
+    the JAX package's within 1e-6 (fp32 sin / cos / atan2 / asin, a few
+    ulp apart), and the round trip as tests/test_se3.py holds it: angles
+    back within 1e-5, the rotation within 1e-6."""
+    rng = np.random.default_rng(5)
+    rpy = rng.uniform(-1.2, 1.2, (64, 3)).astype(np.float32)
+    want_R = np.asarray(jse3.rpy_to_rot(jnp.asarray(rpy)))
+    R = se3.rpy_to_rot(_t(rpy))
+    np.testing.assert_allclose(R.numpy(), want_R, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        se3.rot_to_rpy(_t(want_R)).numpy(),
+        np.asarray(jse3.rot_to_rpy(jnp.asarray(want_R))), rtol=0, atol=1e-6)
+    rpy2 = se3.rot_to_rpy(R)
+    np.testing.assert_allclose(rpy2.numpy(), rpy, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(se3.rpy_to_rot(rpy2).numpy(), R.numpy(),
+                               rtol=0, atol=1e-6)
+    assert se3.rpy_to_rot(_t(rpy).reshape(4, 16, 3)).shape == (4, 16, 3, 3)
+
+
 def test_pose_inverse_make_pose_transform_points():
     rng = np.random.default_rng(3)
     T = _rand_poses(rng, 8)

@@ -141,6 +141,24 @@ def test_ate_matches_reference(align):
         jevaluation.ate_rmse(est, gt, align=align)
 
 
+@pytest.mark.parametrize("delta", [1, 3])
+def test_rpe_matches_reference(delta):
+    """rpe_rmse equal to the JAX package's, exactly (both numpy)."""
+    rng = np.random.default_rng(2)
+    gt = np.tile(np.eye(4), (20, 1, 1))
+    gt[:, :3, 3] = np.cumsum(rng.normal(size=(20, 3)), axis=0)
+    est = gt.copy()
+    for i in range(20):
+        w = rng.normal(size=3) * 0.01
+        c, s = np.cos(w[2]), np.sin(w[2])
+        est[i, :3, :3] = gt[i, :3, :3] @ np.array([[c, -s, 0], [s, c, 0],
+                                                   [0, 0, 1]])
+    est[:, :3, 3] += rng.normal(size=(20, 3)) * 0.05
+    got = evaluation.rpe_rmse(est, gt, delta=delta)
+    assert got == jevaluation.rpe_rmse(est, gt, delta=delta)
+    assert got[0] > 0 and got[1] > 0
+
+
 def test_profiler_reports_alike():
     port, ref = profiling.Profiler(), jprofiling.Profiler()
     for prof in (port, ref):
