@@ -78,7 +78,8 @@ script exits non-zero:
    attempt per mode, the batched tick against single ticks on the same
    candidates, the pose-graph solve at full capacity and the pipeline's
    feeds, with CUDA events (median of 10 calls) or the host clock where a
-   host read ends the call;
+   host read ends the call; each kernel wrapper's device time (the JSON
+   line's ``ms``) by CUDA graph replays (``roofline.device_ms``);
 9. bench: the port's benchmark entry point (``fast_lio_sam_qn_tpu_torch.
    bench.measure``) at full size: its kernel asserts (K1 at k = 15 against
    ``brute_knn``, K2 against K1 bit for bit, the batched K2b and K3b-K5b
@@ -1116,17 +1117,12 @@ def lane_vs_single(pipe, tick):
     log("pgo.optimize (5 GN steps) repeats bit for bit")
 
 
-def kernel_ms(timing):
-    """A kernel's time: its device time where the profiler gave one, else
-    the CUDA-event time of its wrapper's call."""
-    return timing[0] if timing[2] is None else timing[2]
-
-
 def time_pairs(timed, card, plain_reps=10):
     """kernel and plain version in turns (plain, kernel, kernel, plain);
     the better of each pair of medians (CUDA events around the wrapper's
     call; ``plain_reps`` calls a median for the plain version), then the
-    kernels' own device time (``device_ms``)."""
+    wrapper's device time (``roofline.device_ms``: CUDA graph replays).
+    Returns {name: (call ms, plain ms, device ms)}."""
     from fast_lio_sam_qn_tpu_torch.tools.roofline import device_ms
 
     ms = {}
@@ -1138,8 +1134,7 @@ def time_pairs(timed, card, plain_reps=10):
         dev = device_ms(kern)
         ms[name] = (min(b, c), min(a, d), dev)
         log(f"time {name}: kernel {b:.4f} / {c:.4f} ms, plain {a:.4f} / "
-            f"{d:.4f} ms; the kernel's device time "
-            f"{'not measured' if dev is None else f'{dev:.4f} ms'} [{card}]")
+            f"{d:.4f} ms; the kernel's device time {dev:.4f} ms [{card}]")
     return ms
 
 
@@ -2254,21 +2249,15 @@ ROOFLINE_SHARE = 1.05   # a bound above the measured time: a wrong count
 
 
 def roofline_phase(dev, card):
-    """``tools/roofline.py report`` on the bench pair with the kernels
-    timed on the card (CUDA graph replays), every row logged; fails if a
-    stage's time is not positive or either bound reads above
-    ``ROOFLINE_SHARE`` of it.  Then K3 on the bench source timed both ways,
-    torch.profiler (``device_ms``, as the kernel table's device times) and
-    graph replays, to show what the profiler still records this late in
-    the run.  Returns the rows."""
-    from fast_lio_sam_qn_tpu_torch import bench
-    from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
+    """``tools/roofline.py report`` on the bench pair with each FPFH stage
+    timed on the card (``roofline.device_ms``), its table logged; fails if
+    a stage's time is not positive or either bound reads above
+    ``ROOFLINE_SHARE`` of it.  Returns the rows."""
     from fast_lio_sam_qn_tpu_torch.tools import roofline
 
     t0 = time.perf_counter()
-    rows = roofline.report(dev, measure=True, say=log)
+    rows = roofline.report(dev, say=log)
     for r in rows:
-        log(f"roofline {r['cloud']}:{r['stage']}: {json.dumps(r)}")
         if not r["measured_ms"] > 0:
             raise AssertionError(f"roofline: {r['cloud']}:{r['stage']} has "
                                  f"no device time")
@@ -2278,16 +2267,6 @@ def roofline_phase(dev, card):
                     f"roofline: {r['cloud']}:{r['stage']} {share} "
                     f"{r[share]:.4f} > {ROOFLINE_SHARE}: the bound's count "
                     f"is wrong")
-    (va, vma, _), _, _ = bench.build_pair(dev)
-    p, m = roofline._sorted_cloud(va, vma, dev)
-    prune = fs.radius_prune(p[None], m[None])
-
-    def k3():
-        return fs.moments(p, m, 0.9, 0.6, prune)
-
-    log(f"roofline: K3 on the bench source, torch.profiler "
-        f"{roofline.device_ms(k3)} ms, CUDA graph {roofline.graph_ms(k3)} ms "
-        f"[{card}]")
     log(f"roofline: {time.perf_counter() - t0:.1f} s [{card}]")
     return rows
 
@@ -2480,7 +2459,7 @@ def big_k_timings(kin, card):
         bounds[key] = knn_bound(*kin[src], k)
         log(f"time {key} library yardstick (cdist, mask, topk): "
             f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
-            f"(call) / {kernel_ms(ms[key]):.4f} ms (device); bound "
+            f"(call) / {ms[key][2]:.4f} ms (device); bound "
             f"{bounds[key][0]:.5f} ms by {bounds[key][1]}; shape "
             f"{tuple(kin[src][0].shape)} [{card}]")
         torch.cuda.empty_cache()
@@ -2491,7 +2470,7 @@ def big_k_timings(kin, card):
     log(f"knn k=64 F=33 {tuple(kin['desc'][0].shape)} x "
         f"{tuple(kin['desc'][2].shape)}: library (cdist, mask, topk) "
         f"{cuda_ms(lambda: knn_topk_library(*kin['desc'], 64)):.4f} ms, "
-        f"kernel {t64[0]:.4f} ms (call) / {kernel_ms(t64):.4f} ms (device), "
+        f"kernel {t64[0]:.4f} ms (call) / {t64[2]:.4f} ms (device), "
         f"bound {b64[0]:.5f} ms by {b64[1]} [{card}]")
     torch.cuda.empty_cache()
     return ms, library, bounds
@@ -3019,7 +2998,7 @@ def main() -> int:
     log(f"time knn k=1 F=33 {bp.PIPE_SRC_CAP}x{bp.PIPE_DST_CAP} library "
         f"yardstick (cdist, mask, min): "
         f"{cuda_ms(lambda: knn_library(*pdesc_args)):.4f} ms against the "
-        f"kernel's {k33[0]:.4f} ms (call) / {kernel_ms(k33):.4f} ms (device) "
+        f"kernel's {k33[0]:.4f} ms (call) / {k33[2]:.4f} ms (device) "
         f"[{card}]")
     P, _, bsrt, bdesc, bval = clouds["src"]
     D, DM = clouds["dst"][:2]
@@ -3053,7 +3032,7 @@ def main() -> int:
         library[key] = cuda_ms(lambda: knn_library(*args))
         log(f"time {key} library yardstick (cdist, mask, min): "
             f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
-            f"(call) / {kernel_ms(ms[key]):.4f} ms (device) [{card}]")
+            f"(call) / {ms[key][2]:.4f} ms (device) [{card}]")
     fpfh_in = {
         "moments": (moments_library, (sp, sm_), "cdist, radius masks, W @ "
                     "features", lambda: fs.moments(sp, sm_, 0.9, 0.6), sm_),
@@ -3070,7 +3049,7 @@ def main() -> int:
         library[key] = cuda_ms(lambda: fn(*args))
         log(f"time {key} library yardstick ({what}, fp32): "
             f"{library[key]:.4f} ms against the kernel's {ms[key][0]:.4f} ms "
-            f"(call) / {kernel_ms(ms[key]):.4f} ms (device); largest "
+            f"(call) / {ms[key][2]:.4f} ms (device); largest "
             f"|yardstick - kernel| on valid rows {float(diff.max()):.3e} "
             f"[{card}]")
         del diff
@@ -3103,8 +3082,8 @@ def main() -> int:
         old = (f"; all pairs {all_pairs[key][0]:.5f} ms by "
                f"{all_pairs[key][1]}" if key in all_pairs else "")
         log(f"bound {key}: {b_ms:.5f} ms by {by}{old}; kernel "
-            f"{kernel_ms(ms[key]):.4f} ms (the bound is "
-            f"{b_ms / kernel_ms(ms[key]):.3f} of it)")
+            f"{ms[key][2]:.4f} ms (the bound is "
+            f"{b_ms / ms[key][2]:.3f} of it)")
     log(f"keep rule: of the (block, tile) pairs below the extents, K3 "
         f"(0.9 m over mask) keeps {srt.share3:.4f} on the bench source and "
         f"{bsrt.share3:.4f} on the B={P.shape[0]} lanes at the pipeline "
@@ -3170,7 +3149,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{REPO}/csrc/{src}",
          "replaces": rep, "launches": launches[key],
-         "max_abs_err": errs[key], "ms": kernel_ms(ms[key]),
+         "max_abs_err": errs[key], "ms": ms[key][2],
          "plain_ms": ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
          "library_ms": library[key]}

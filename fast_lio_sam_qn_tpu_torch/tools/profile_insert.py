@@ -106,13 +106,12 @@ def _cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def make_scan(seed, offset=None, device="cpu"):
+def make_scan(seed, device="cpu"):
     """(points (N, 3), mask (N,)) on ``device``: N points of one fixed
     random volume (6N points in 120 x 120 x 8 m) with 1 cm noise, so
     successive inserts mostly touch existing voxels, like a vehicle at ~2 m
     a scan, instead of all-fresh random voxels.  The JAX package's
-    generator, draw for draw; ``offset``, the scan's nominal position,
-    moves no point there either."""
+    generator, draw for draw (its scan position argument moves no point)."""
     world = np.random.default_rng(0).uniform(
         [-60, -60, -2], [60, 60, 6], size=(6 * N, 3)).astype(np.float32)
     rng = np.random.default_rng(seed)

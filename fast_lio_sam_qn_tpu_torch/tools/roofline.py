@@ -21,9 +21,9 @@ pairs, the FPFH kernels' in-radius pairs) the count is this run's.
 - ``insert_budget``: a census of ``ops/surfel_map.py insert`` at steady
   state: its table-scale gathers, scatters, sorts and passes, and the
   plane fits' elementwise ops.
-- ``device_ms``, ``graph_ms``, ``measure_kernel_ms``: the device time of
-  the port's kernels (``torch.profiler``; a CUDA graph's replays between
-  CUDA events), on the card only.
+- ``device_ms``, ``measure_kernel_ms``: the device time of a call of the
+  port's wrappers (a CUDA graph's replays between CUDA events), on the
+  card only.
 - ``report``: all of it on ``bench.build_pair``'s two clouds, measured
   beside the bounds on the card.
 
@@ -47,11 +47,6 @@ from ..ops import knn_cuda
 # the tensor cores, and HBM3
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
-# the port's kernels, as the profiler names them (csrc/*.cu)
-PORT_KERNELS = ("knn1_kernel", "knnk_warp_kernel", "banded1_kernel",
-                "bandedk_kernel", "tile_bbox_kernel", "merge_slices",
-                "moments_kernel", "spfh_kernel", "agg_kernel")
-
 STAGES = ("moments", "spfh", "agg")
 # the loop closure's radii: K3 at the normal and the covariance radius (its
 # prune at the larger), K4 and K5 at the feature radius
@@ -62,7 +57,7 @@ STAGE_RADII = {"moments": (0.9, 0.6), "spfh": (1.5,), "agg": (1.5,)}
 # bytes in of a valid row and out of every row
 PAIR_WORK = {"moments": ((16, 10), 13, 80), "spfh": ((75,), 26, 136),
              "agg": ((68,), 146, 136)}
-# fp32 operations the kernels issue (``--fmad=false`` for K4), for each
+# fp32 operations the kernels execute (``--fmad=false`` for K4), for each
 # (query row, db row) of a kept (block, tile) pair: cross3's product and two
 # FMAs (5), expand_d2's product, difference and sum (3) and a compare a
 # radius -- fpfh_moments.cu:146-150, fpfh_spfh.cu:152-153, fpfh_agg.cu:148-150
@@ -144,13 +139,6 @@ def stage_pair_bound(stage, p, qm, dbm, pair_flops=0):
                         row_in, row_out)
 
 
-def _radii(stage, radius):
-    if radius is None:
-        return STAGE_RADII[stage]
-    radii = tuple(float(r) for r in np.atleast_1d(radius))
-    return radii * 2 if stage == "moments" and len(radii) == 1 else radii
-
-
 def _sorted_cloud(points, mask, device=None):
     """The cloud in the port's Morton order, as ``fpfh_radius`` gives it to
     K3-K5 on the card: (points (N, 3) fp32, mask (N,))."""
@@ -209,13 +197,12 @@ def _hits(p, qm, dbm, radii, self_pairs, block):
     return hits, marked
 
 
-def stage_budget(points, mask, stage: str, radius=None, block=fs.FP_BLOCK,
-                 tile=fs.FP_TILE):
+def stage_budget(points, mask, stage: str):
     """The work of one FPFH kernel over one cloud (its self-search) in the
-    port's Morton order.  ``stage``: "moments" (K3, db set ``mask``),
+    port's Morton order, at the stage's radii (``STAGE_RADII``) and the
+    kernels' blocks and tiles.  ``stage``: "moments" (K3, db set ``mask``),
     "spfh" (K4) or "agg" (K5; db set ``mask & n_valid``, ``n_valid`` from
-    K3's plain moments); ``radius``: the stage's radii
-    (``STAGE_RADII`` when None).
+    K3's plain moments).
 
     ``blocks`` / ``tiles``: the grid below the query / db extent, where the
     kernel walks; ``surviving`` of its ``total`` (block, tile) pairs kept;
@@ -227,7 +214,7 @@ def stage_budget(points, mask, stage: str, radius=None, block=fs.FP_BLOCK,
     the least time of any implementation (the kernel table's bound);
     ``all_pairs_bound_ms``: the same with 9 flops of distance test for every
     valid pair."""
-    radii = _radii(stage, radius)
+    radii, block, tile = STAGE_RADII[stage], fs.FP_BLOCK, fs.FP_TILE
     p, m = _sorted_cloud(points, mask)
     dbm = m if stage == "moments" else m & _n_valid(p, m)
     keep = _keep_matrix(p, m, dbm, max(radii), block, tile)
@@ -343,15 +330,13 @@ def _claim_rows(label, n, t, probes):
     ]
 
 
-def insert_budget(n_pts: int | None = None, table: int | None = None,
-                  hood_cap: int | None = None, halo_cap: int | None = None,
-                  hood_window: int = 27, say=None):
+def insert_budget(say=None):
     """Census of the port's steady-state surfel insert (``ops/surfel_map.py
-    insert``) at ``tools/profile_insert.py``'s scale by default: 32,768
-    points, a 2^19-slot table, hood cap 8,192, halo cap 4,096, the 27-voxel
-    hood.  The port has no claim or hint-maintenance cap: it runs the
-    reference's full batches (the claim over every point, the halo claim
-    over the fan's 6 x halo_cap rows).
+    insert``) at ``tools/profile_insert.py``'s scale: N = 32,768 points, a
+    2^19-slot table, hood cap 8,192, halo cap 4,096, the 27-voxel hood (the
+    report's measured insert).  The port has no claim or hint-maintenance
+    cap: it runs the reference's full batches (the claim over every point,
+    the halo claim over the fan's 6 x halo_cap rows).
 
     Each row: (stage, the lines it counts, ops, rows touched, bytes moved),
     ops being the table-scale gathers, scatters, sorts, fills and passes
@@ -361,16 +346,9 @@ def insert_budget(n_pts: int | None = None, table: int | None = None,
     from ..ops.hashgrid import NUM_PROBES
     from . import profile_insert as pi
 
-    n = pi.N if n_pts is None else n_pts
-    t = pi.TABLE if table is None else table
-    h = min(pi.HOOD_CAP if hood_cap is None else hood_cap, n)
-    c = min(pi.HALO_CAP if halo_cap is None else halo_cap, n)
-    p, w = NUM_PROBES, hood_window
+    n, t, p, w = pi.N, pi.TABLE, NUM_PROBES, 27
+    h, c = min(pi.HOOD_CAP, n), min(pi.HALO_CAP, n)
     fit_ops, fit_row = _plane_fit_ops()
-    if w == 7:  # self + the 6 hinted neighbours
-        hood = (2, h + 6 * h, _gather(h, 24) + _gather(6 * h, 16))
-    else:
-        hood = (1, h * w * p, _gather(h * w * p, 16))
     rows = [("locate", "ops/surfel_map.py:188-198, 398", 1, n * p,
              _gather(n * p, 16))]
     rows += _claim_rows("claim", n, t, p)
@@ -390,8 +368,9 @@ def insert_budget(n_pts: int | None = None, table: int | None = None,
         ("refit hood compaction", "ops/surfel_map.py:124-129, 305", 1, n,
          12 * n),
         (f"refit hood{w} gathers", "ops/surfel_map.py:314-328, 340",
-         3 + hood[0], 2 * h + h * w + hood[1],
-         _gather(h, 16) + hood[2] + _gather(h * w, 40) + _gather(h, 24)),
+         4, 2 * h + h * w + h * w * p,
+         _gather(h, 16) + _gather(h * w * p, 16) + _gather(h * w, 40)
+         + _gather(h, 24)),
         ("refit hood plane fit (Jacobi)", "ops/surfel_map.py:243-256, 338",
          fit_ops, h, fit_row * h),
         ("refit hood write", "ops/surfel_map.py:344", 2, t + h,
@@ -432,39 +411,15 @@ def insert_budget(n_pts: int | None = None, table: int | None = None,
 # device time on the card
 # ---------------------------------------------------------------------------
 
-def device_ms(fn, reps: int = 10, windows: int = 3):
-    """Device time per call of ``fn`` spent in the port's own kernels
-    (torch.profiler, after one warm-up call), without the wrapper's host
-    time and its small torch ops; the first of up to ``windows``
-    profiling windows that records any (a window now and then records no
-    device event), else None."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0.0)
-                 for e in prof.key_averages()
-                 if any(k in e.key for k in PORT_KERNELS))
-        if us > 0:
-            return us / reps / 1e3
-    return None
-
-
-def graph_ms(fn, reps: int = 50, rounds: int = 5):
-    """Device time per call of ``fn``, a wrapper whose only device work is
-    its kernel launches on the current stream and that reads nothing back:
-    after a warm-up call, ``fn`` is captured once in a CUDA graph and
-    replayed ``reps`` times back to back between two CUDA events, the
-    median of ``rounds`` such runs.  The wrapper's host time is not in it,
-    and no profiler is involved: late in a long process torch.profiler
-    delivers only some of the kernel records or none (``device_ms`` then
-    reads low or None)."""
+def device_ms(fn):
+    """Device time per call of ``fn``, a wrapper that launches its work on
+    the current stream and reads nothing back: its kernels and the small
+    torch ops it runs, without its host time.  After a warm-up call,
+    ``fn`` is captured once in a CUDA graph and replayed 50 times back to
+    back between two CUDA events; the median of 5 such runs.
+    (torch.profiler is not used: late in a long process it delivers only
+    some of the kernel records, or none.)"""
+    reps, rounds = 50, 5
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -485,51 +440,50 @@ def graph_ms(fn, reps: int = 50, rounds: int = 5):
     return float(np.median(times))
 
 
-def measure_kernel_ms(stage, points, mask, radius=None, device="cuda"):
+def measure_kernel_ms(stage, points, mask, device="cuda"):
     """Device time of one K3 ("moments"), K4 ("spfh") or K5 ("agg")
-    launch on the card (``graph_ms``), on the cloud in the port's Morton
-    order with its radius prune made beforehand, so that the timed call
-    launches that kernel alone.  K4 and K5 take the normals and SPFH that
-    K3 and K4 give.  A CPU device raises: there is no kernel to time
-    there."""
+    launch on the card (``device_ms``) at the stage's radii, on the cloud
+    in the port's Morton order with its radius prune made beforehand, so
+    that the timed call launches that kernel alone.  K4 and K5 take the
+    normals and SPFH that K3 and K4 give.  A CPU device raises: there is no
+    kernel to time there."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"measure_kernel_ms times a kernel on the card; "
                          f"got device {device}")
-    radii = _radii(stage, radius)
+    radii = STAGE_RADII[stage]
     p, m = _sorted_cloud(points, mask, device)
     if stage == "moments":
         prune = fs.radius_prune(p[None], m[None])
-        return graph_ms(lambda: fs.moments(p, m, *radii, prune))
+        return device_ms(lambda: fs.moments(p, m, *radii, prune))
     mom = fs.moments(p, m, *STAGE_RADII["moments"])
     nrm, v, _, _ = fs.moments_to_normals_covs(mom, p, m, None)
     prune = fs.radius_prune(p[None], m[None], v[None])
     if stage == "spfh":
-        return graph_ms(lambda: fs.spfh(p, m, nrm, v, radii[0], prune))
+        return device_ms(lambda: fs.spfh(p, m, nrm, v, radii[0], prune))
     raw = fs.spfh(p, m, nrm, v, radii[0], prune)
     spn = (raw[:, :33] / torch.clamp(raw[:, 33:], min=1.0)).contiguous()
-    return graph_ms(lambda: fs.fpfh_agg(p, m, v, spn, radii[0], prune))
+    return device_ms(lambda: fs.fpfh_agg(p, m, v, spn, radii[0], prune))
 
 
 # ---------------------------------------------------------------------------
 # the report
 # ---------------------------------------------------------------------------
 
-def report(device="cuda", measure=None, say=print):
+def report(device="cuda", say=print):
     """The roofline of the loop match's FPFH stages on ``bench.build_pair``'s
-    two clouds: one row per cloud and stage; with ``measure`` (default: on
-    a CUDA device) each row's kernel timed on the card (``graph_ms``)
-    beside its two shares, ``bound_ms / measured`` and ``pair_bound_ms / measured``;
-    then the GICP NN budget, the totals and
-    the surfel insert's census, beside the insert's measured ms
-    (``profile_insert.stages`` at one rep) on the card.  Every line with a
-    time carries the card's name and power limit.  Returns the rows."""
+    two clouds: one row per cloud and stage; on a CUDA device each row's
+    kernel timed (``measure_kernel_ms``) beside its two shares,
+    ``bound_ms / measured`` and ``pair_bound_ms / measured``; then the GICP
+    NN budget, the totals and the surfel insert's census, beside the
+    insert's measured ms (``profile_insert.stages`` at one rep) on the
+    card.  Every line with a time carries the card's name and power limit.
+    Returns the rows."""
     from .. import bench
     from . import profile_insert
 
     device = torch.device(device)
-    if measure is None:
-        measure = device.type == "cuda"
+    measure = device.type == "cuda"
     card = bench.card_line(device)
     (va, vma, _), (vb, vmb, _), _ = bench.build_pair(device)
     rows = []

@@ -187,12 +187,11 @@ def test_traced_ops_counts_new_tensors():
     assert rl.traced_ops(fn, torch.ones(1, 1), torch.ones(1, 1)) == (2, 24)
 
 
-@pytest.mark.parametrize("window", [27, 7])
-def test_insert_budget_totals_are_row_sums(window):
+def test_insert_budget_totals_are_row_sums():
     """The census's totals are the sums of its rows; its HBM bound is its
     bytes at the HBM rate; both plane fits (own and hood) are counted; the
     claim runs twice (the points, then the halo fan)."""
-    c = rl.insert_budget(hood_window=window)
+    c = rl.insert_budget()
     assert c["table_ops"] == sum(r["ops"] for r in c["rows"])
     assert c["bytes"] == sum(r["bytes"] for r in c["rows"])
     assert c["hbm_bound_ms"] == pytest.approx(c["bytes"] * MS_PER_BYTE)
@@ -201,6 +200,27 @@ def test_insert_budget_totals_are_row_sums(window):
     assert fits[0]["ops"] > 500
     assert sum("claim rounds" in r["stage"] for r in c["rows"]) == 2
     assert all(r["ops"] > 0 and r["bytes"] > 0 for r in c["rows"])
+
+
+def test_insert_budget_reads_profile_insert_scale():
+    """The census counts ``tools/profile_insert.py``'s insert: its N points
+    in the locate (one probe row each), its hood cap over the 27-voxel
+    hood (a centre row, the neighbour rows and their probes) and its halo
+    cap in the fan (6 neighbours a source)."""
+    from fast_lio_sam_qn_tpu_torch.ops.hashgrid import NUM_PROBES
+    from fast_lio_sam_qn_tpu_torch.tools import profile_insert as pi
+
+    lines = []
+    c = rl.insert_budget(say=lines.append)
+    rows = {r["stage"]: r for r in c["rows"]}
+    assert rows["locate"]["rows"] == pi.N * NUM_PROBES
+    h = pi.HOOD_CAP
+    assert rows["refit hood27 gathers"]["rows"] == (2 * h + 27 * h
+                                                    + 27 * h * NUM_PROBES)
+    assert rows["halo fan hint lookup"]["rows"] == 7 * pi.HALO_CAP
+    assert lines[0] == (f"surfel insert census ({pi.N} points, {pi.TABLE} "
+                        f"slots, hood27 cap {h}, halo cap {pi.HALO_CAP}):")
+    assert len(lines) == len(c["rows"]) + 2
 
 
 def test_report_on_the_cpu_has_the_counts_only():
