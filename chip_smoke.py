@@ -31,6 +31,15 @@ script exits non-zero:
    queries than a CTA, F in {3, 33, 64}, k in {1, 2, 15, 16, 17, 31, 32,
    33, 48, 63, 64} (K2 at 1, 15, 32); outputs must be equal, K2 must equal
    K1, every lane its single-cloud kernel and a repeated launch the first;
+2b. lio_kernels: K6 (``linalg3.eigh3_soa``) against its plain version, bit
+   for bit, at the surfel refit's shapes (8,192 and 4,096 rows, column
+   views at stride 6) and the attempt's (5,632 rows; 4 x 32,768
+   flattened), on zero, rank-1, repeated-eigenvalue, 1e3-scale and empty
+   inputs and on a (4, 1024) batch and its transpose; K7
+   (``ieskf.propagate``) against its plain version within
+   ``PROPAGATE_TOL`` at 18 and 24 dims on a full 64-sample scan, one
+   sample, duplicate stamps and IMU dropout; both timed (call, device,
+   plain; K6 beside ``torch.linalg.eigh``) against their bounds;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, on the benchmark's voxelized clouds at the
    benchmark's capacities and at the pipeline's; K2 must also equal K1 bit
@@ -45,8 +54,9 @@ script exits non-zero:
 4. drives the main path, ``LoopClosure(cfg, src_cap, dst_cap)
    .fetch_and_perform(store, 1)`` on a two-keyframe store, in both matching
    modes and at the pipeline's capacities, with every launch counter reset
-   just before and read just after; each run must find keyframe 0, converge,
-   pass the ground-truth gate (< 6 cm, < 0.01 rad) and repeat bit-identically;
+   just before and read just after (K1-K5 and K6 must launch); each run
+   must find keyframe 0, converge, pass the ground-truth gate (< 6 cm,
+   < 0.01 rad) and repeat bit-identically;
 5. holds every batched kernel (K1, K2 and K3-K5 over a batch of clouds,
    the batch on the grid's y axis) on jittered, differently masked lanes of
    the bench clouds against its plain batched version and, bit for bit,
@@ -117,13 +127,15 @@ script exits non-zero:
 12. lio_golden: the 240-scan sim golden through the port, ``run.
    sim_lio_stream`` (the "sim" preset) replayed into ``FastLioSamQnPipeline``
    with the golden's capacities: 34 keyframes, 4-8 committed pairs, 12 loop
-   events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); LIO ms per
-   scan and its stage spans (CUDA events), feed ms, peak memory;
+   events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); K6 and K7
+   launch on every scan after the first; LIO ms per scan and its stage
+   spans (CUDA events), feed ms, peak memory;
 13. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
    0.5 m) on a straight drive, 10 warm and 20 timed scans: every scan
-   after the first matches planes, the final position error within 2x the
-   CPU run's (``KITTI_CPU_ERR``); ms per scan and stage spans, host syncs
-   and kernels per scan, peak memory;
+   after the first matches planes and launches K6 and K7 (counters read
+   around each scan: the kernel table's K6 / K7 launches), the final
+   position error within 2x the CPU run's (``KITTI_CPU_ERR``); ms per
+   scan and stage spans, host syncs and kernels per scan, peak memory;
 14. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
    poses within 1e-4 m / 1e-4 rad; each scan from the CPU's state gives
    the CPU's match count;
@@ -185,10 +197,11 @@ script exits non-zero:
    kernel launched; the run's time and its host-staged collectives';
 26. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
-   result line.  The LIO launches none of K1-K5 (its reference has no
-   Pallas kernel).  K3, K4 and K5 skip what the radius prune rules out, so
-   their bound counts the math of the pairs within the radius only (the
-   all-pairs figure is logged beside it).
+   result line.  The LIO launches K6 and K7 (the loops that XLA fuses in
+   its reference) and none of K1-K5; the attempt launches K6 too.  K3, K4
+   and K5 skip what the radius prune rules out, so their bound counts the
+   math of the pairs within the radius only (the all-pairs figure is
+   logged beside it).
 """
 from __future__ import annotations
 
@@ -939,12 +952,15 @@ def launch_counters():
     from fast_lio_sam_qn_tpu_torch.ops import fpfh_stream as fs
     from fast_lio_sam_qn_tpu_torch.ops import knn_cuda
 
+    from fast_lio_sam_qn_tpu_torch.ops import ieskf, linalg3
+
     return {"knn": knn_cuda.knn, "knn_banded": knn_cuda.knn_banded,
             "moments": fs.moments, "spfh": fs.spfh, "agg": fs.fpfh_agg,
             "knn_b": knn_cuda.knn_batched,
             "knn_banded_b": knn_cuda.knn_banded_batched,
             "moments_b": fs.moments_batched, "spfh_b": fs.spfh_batched,
-            "agg_b": fs.fpfh_agg_batched}
+            "agg_b": fs.fpfh_agg_batched, "eigh3": linalg3.eigh3_soa,
+            "propagate": ieskf.propagate}
 
 
 # K1 / K1b launches by k, read from the wrappers' ``launches_k``
@@ -1328,6 +1344,165 @@ class PhaseMemory:
                 f"above the phase's start ({peak / 2**30:.3f} GiB in all)")
 
 
+# ---------------------------------------------------------------------------
+# K6 and K7: the LIO step's two loops against their plain versions
+# ---------------------------------------------------------------------------
+
+LIO_KERNELS = ("eigh3", "propagate")
+# K6's shapes: the refit's two plane fits (own voxels, hood) and the
+# attempt's FPFH solves (one cloud; the batched tick's lanes flattened)
+EIGH3_ROWS = {"refit own": 8192, "refit hood": 4096, "attempt": 5632,
+              "attempt batched (4 x 32768)": 4 * 32768}
+# K6 repeats its plain version's arithmetic op for op: bit-equal
+EIGH3_TOL = 0.0
+# K7 against its plain version (every output, P relative to its largest
+# entry): the products' accumulation order is cuBLAS's, not ours
+PROPAGATE_TOL = 1e-6
+
+
+def check_eigh3(name, comps):
+    """K6 against its plain version: the largest |difference| (fails above
+    ``EIGH3_TOL`` or on a non-finite output)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import linalg3
+
+    def stacked(out):
+        evals, evecs = out
+        return torch.stack(list(evals) + [x for row in evecs for x in row])
+
+    got = stacked(linalg3.eigh3_soa(*comps))
+    want = stacked(linalg3.eigh3_soa_plain(*comps))
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"eigh3 {name}: shape {tuple(got.shape)} or a "
+                             f"non-finite output")
+    err = float(torch.abs(got - want).max()) if got.numel() else 0.0
+    log(f"eigh3 {name}: {comps[0].numel()} matrices, max |kernel - plain| "
+        f"{err!r}, bit-equal {torch.equal(got, want)}")
+    if err > EIGH3_TOL:
+        raise AssertionError(f"eigh3 {name}: kernel differs by {err}")
+    return err
+
+
+def propagate_args(case, dim, dev):
+    """``ieskf.propagate``'s arguments for a ``lio_scenarios`` case."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import ieskf
+    from fast_lio_sam_qn_tpu_torch.tools import lio_scenarios as ls
+
+    nav, *rest = ls.propagate_case(case, dim)
+    return (ieskf.NavState(*(torch.from_numpy(x).to(dev) for x in nav)),
+            *(torch.as_tensor(np.asarray(x)).to(dev) for x in rest))
+
+
+def check_propagate(name, args):
+    """K7 against its plain version: the largest |difference| of R, p, v,
+    P (over its largest entry) and the log (fails above
+    ``PROPAGATE_TOL``)."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import ieskf
+
+    got = ieskf.propagate(*args)
+    want = ieskf.propagate_plain(*args)
+    parts = {}
+    for part, g, w in (("state", got[0][:3], want[0][:3]),
+                       ("P", [got[1]], [want[1]]),
+                       ("log", got[2][:4], want[2][:4])):
+        scale = float(torch.abs(w[0]).max()) if part == "P" else 1.0
+        parts[part] = max(float(torch.abs(a - b).max()) / scale
+                          for a, b in zip(g, w))
+        if not all(bool(torch.isfinite(a).all()) for a in g):
+            raise AssertionError(f"propagate {name}: non-finite {part}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*got[0][:3], got[1], *got[2][:4]],
+        [*want[0][:3], want[1], *want[2][:4]]))
+    log(f"propagate {name}: max |kernel - plain| {parts} (P over its "
+        f"largest entry), bit-equal {same}")
+    err = max(parts.values())
+    if err > PROPAGATE_TOL:
+        raise AssertionError(f"propagate {name}: kernel differs by {err}")
+    return err
+
+
+def lio_kernels(dev, card, errs):
+    """K6 at the refit's and the attempt's shapes (column views at stride 6
+    as the refit passes them) and on the degenerate inputs, K7 at 18 and
+    24 dims on every ``lio_scenarios.PROPAGATE_CASES`` case, each against
+    its plain version; then each timed beside its plain version, its
+    bound and (K6) ``torch.linalg.eigh``.  Returns (ms, library, bounds)
+    for the kernel table."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import ieskf, linalg3
+    from fast_lio_sam_qn_tpu_torch.tools import lio_scenarios as ls
+    from fast_lio_sam_qn_tpu_torch.tools.roofline import (eigh3_bound,
+                                                          propagate_bound)
+
+    rows = {}
+    for i, (name, n) in enumerate(EIGH3_ROWS.items()):
+        rows[name] = torch.from_numpy(ls.covariance_rows(n, seed=i)).to(dev)
+        errs["eigh3"] = max(errs["eigh3"],
+                            check_eigh3(name, rows[name].unbind(1)))
+    for name, a in ls.eigh3_edge_cases().items():
+        errs["eigh3"] = max(errs["eigh3"], check_eigh3(
+            name, torch.from_numpy(a).to(dev).unbind(1)))
+    batch = rows["refit hood"].view(4, 1024, 6)
+    errs["eigh3"] = max(errs["eigh3"], check_eigh3(
+        "(4, 1024) batch", batch.unbind(2)))
+    errs["eigh3"] = max(errs["eigh3"], check_eigh3(
+        "(1024, 4) transposed batch", batch.transpose(0, 1).unbind(2)))
+    for dim in (ieskf.STATE_DIM, ieskf.STATE_DIM_EXT):
+        for case in ls.PROPAGATE_CASES:
+            errs["propagate"] = max(errs["propagate"], check_propagate(
+                f"{case} {dim}", propagate_args(case, dim, dev)))
+
+    comps = rows["refit own"].unbind(1)
+    args = propagate_args("full", ieskf.STATE_DIM, dev)
+    ms = time_pairs({
+        "eigh3": (lambda: linalg3.eigh3_soa(*comps),
+                  lambda: linalg3.eigh3_soa_plain(*comps)),
+        "propagate": (lambda: ieskf.propagate(*args),
+                      lambda: ieskf.propagate_plain(*args))}, card,
+        plain_reps=3)
+    A = torch.stack([torch.stack([comps[i], comps[j], comps[k]], -1)
+                     for i, j, k in ((0, 1, 2), (1, 3, 4), (2, 4, 5))], -2)
+    library = {"eigh3": cuda_ms(lambda: torch.linalg.eigh(A)),
+               "propagate": None}
+    log(f"time eigh3 library yardstick (torch.linalg.eigh on "
+        f"{tuple(A.shape)}): {library['eigh3']:.4f} ms against the "
+        f"kernel's {ms['eigh3'][2]:.4f} ms (device) [{card}]")
+    k = args[2].shape[0]
+    bounds = {"eigh3": eigh3_bound(comps[0].numel()),
+              "propagate": propagate_bound(ieskf.STATE_DIM, k,
+                                           int(args[5].sum()) + 1)}
+    for key, (b_ms, by) in bounds.items():
+        log(f"bound {key}: {b_ms:.6f} ms by {by}; kernel {ms[key][2]:.4f} "
+            f"ms (the bound is {b_ms / ms[key][2]:.5f} of it)")
+    return ms, library, bounds
+
+
+def lio_launches(counts, label):
+    """Per-scan K6 / K7 launches (one dict a scan): both must launch on
+    every scan after the first.  Returns their totals."""
+    missing = [i for i, c in enumerate(counts)
+               if i and not all(c[k] > 0 for k in LIO_KERNELS)]
+    total = {k: sum(c[k] for c in counts) for k in LIO_KERNELS}
+    log(f"{label}: K6 / K7 launches over {len(counts)} scans {total}, per "
+        f"scan {[tuple(c[k] for k in LIO_KERNELS) for c in counts[:3]]} ...")
+    if missing:
+        raise AssertionError(f"{label}: K6 or K7 did not launch on scans "
+                             f"{missing[:10]}")
+    return total
+
+
+def scan_counts(before):
+    """The K6 / K7 launches since ``before`` (a ``launches_now()``)."""
+    now = launches_now()
+    return {k: now[k] - before[k] for k in LIO_KERNELS}
+
+
 def golden_config():
     """The 240-scan sim golden's config: the "sim" preset with run_sim's
     capacities (tests/test_golden.py:25-37)."""
@@ -1404,9 +1579,15 @@ def lio_golden(dev, card):
     spans = EventSpans()
     mem = PhaseMemory(dev)
     t0 = time.perf_counter()
-    feed = list(sim_lio_stream(cfg, world, traj, GOLDEN_SCANS, GOLDEN_HZ,
-                               prof=spans, device=dev))
+    feed, counts = [], []
+    before = launches_now()
+    for f in sim_lio_stream(cfg, world, traj, GOLDEN_SCANS, GOLDEN_HZ,
+                            prof=spans, device=dev):
+        feed.append(f)
+        counts.append(scan_counts(before))
+        before = launches_now()
     torch.cuda.synchronize()
+    lio_launches(counts, "lio_golden")
     log(f"lio_golden stream: {GOLDEN_SCANS} scans of "
         f"{cfg.lio.max_points_per_scan} points in "
         f"{time.perf_counter() - t0:.1f} s (simulation included), {mem}")
@@ -1460,13 +1641,17 @@ def lio_kitti(dev, card):
     spans = EventSpans()
     mem = PhaseMemory(dev)
     lio, state = pi.kitti_lio(dev, profiler=spans)
-    matches = []
+    matches, counts = [], []
+    reset_launches()
     for s in range(pi.KITTI_SCANS):
         inputs = pi.kitti_inputs(s)
+        before = launches_now()
         with spans.span("lio"):
             state, res = lio.process_scan(state, *inputs)
+        counts.append(scan_counts(before))
         matches.append(res.num_matches)
     torch.cuda.synchronize()
+    total = lio_launches(counts, "lio_kitti")
     matches = [int(m) for m in matches]
     err = float(np.linalg.norm(res.pose.cpu().numpy()[:3, 3]
                                - pi.kitti_truth(inputs[-1])[:3, 3]))
@@ -1483,6 +1668,7 @@ def lio_kitti(dev, card):
     if KITTI_CPU_ERR is not None and not err <= 2 * KITTI_CPU_ERR:
         raise AssertionError(f"lio_kitti: error {err} m beyond 2x the CPU "
                              f"run's {KITTI_CPU_ERR} m")
+    return total
 
 
 def voxel_gap(a, b):
@@ -2922,6 +3108,9 @@ def main() -> int:
     log(f"kNN edge cases: {knn_edge_cases(dev)} cases equal")
     store, drift = bp.build_store(dev)
     errs = {k: 0.0 for k in launches_now()}
+    t0 = time.perf_counter()
+    lio_ms, lio_library, lio_bounds = lio_kernels(dev, card, errs)
+    log(f"lio_kernels: {time.perf_counter() - t0:.1f} s")
     inputs, nn_args, sorted_nn, desc_args = kernel_parity(
         store, bp.SRC_CAP, bp.DST_CAP, errs)
     pdesc_args = kernel_parity(store, bp.PIPE_SRC_CAP, bp.PIPE_DST_CAP,
@@ -2942,7 +3131,7 @@ def main() -> int:
     log(f"attempt-path launches over {n_attempts} attempts: {launches}; "
         f"per attempt: { {k: v / n_attempts for k, v in launches.items()} }")
     if not all(launches[k] > 0 for k in ("knn", "knn_banded", "moments",
-                                         "spfh", "agg")):
+                                         "spfh", "agg", "eigh3")):
         raise AssertionError(f"a kernel of the attempt never launched: "
                              f"{launches}")
 
@@ -3028,6 +3217,8 @@ def main() -> int:
     knn_in = {"knn": desc_args, "knn_banded": sorted_nn,
               "knn_b": (bdesc, bval, ddesc, dval), "knn_banded_b": bsorted}
     library = {k: None for k in launches_now()}
+    ms.update(lio_ms)
+    library.update(lio_library)
     for key, args in knn_in.items():
         library[key] = cuda_ms(lambda: knn_library(*args))
         log(f"time {key} library yardstick (cdist, mask, min): "
@@ -3078,6 +3269,7 @@ def main() -> int:
     }
     bounds.update({key: stage_pair_bound(key.split("_")[0], *a)
                    for key, a in fp_in.items()})
+    bounds.update(lio_bounds)
     for key, (b_ms, by) in bounds.items():
         old = (f"; all pairs {all_pairs[key][0]:.5f} ms by "
                f"{all_pairs[key][1]}" if key in all_pairs else "")
@@ -3111,7 +3303,8 @@ def main() -> int:
     log(f"grid_cov: {time.perf_counter() - t0:.1f} s")
 
     lio_golden(dev, card)
-    lio_kitti(dev, card)
+    # K6 / K7 launches on the LIO's main path: the kitti-width run
+    launches.update(lio_kitti(dev, card))
     lio_card_vs_cpu(dev)
     lio_repeat(dev, card)
     lio_point(dev, card)
@@ -3145,6 +3338,11 @@ def main() -> int:
          "moments_b"),
         ("fpfh_spfh_batched", "fpfh_spfh.cu", f"{fs_src}:419", "spfh_b"),
         ("fpfh_agg_batched", "fpfh_agg.cu", f"{fs_src}:419", "agg_b"),
+        ("eigh3", "eigh3.cu", "fast_lio_sam_qn_tpu/ops/linalg3.py:18 "
+         "(eigh3_soa, XLA-fused lax.fori_loop at :64)", "eigh3"),
+        ("propagate", "propagate.cu", "fast_lio_sam_qn_tpu/ops/ieskf.py:143 "
+         "(propagate, XLA-fused lax.scan at :199, tail :202-232)",
+         "propagate"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{REPO}/csrc/{src}",

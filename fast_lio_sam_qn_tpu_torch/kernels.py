@@ -39,7 +39,8 @@ _F = ctypes.c_float
 # kernel takes a batch count b (its grid's y axis) before its sizes; the kNN
 # kernels also take the lanes' extents and, at k = 1, a split count (grid z)
 # with its partials; K3, K4 and K5 take the extents and the tile boxes that
-# flsq_fpfh_boxes builds
+# flsq_fpfh_boxes builds; K6 takes each component's element stride; K7
+# its sample count and the state's dimension
 _SIGNATURES = {
     "flsq_knn": (_P,) * 8 + (_I,) * 6 + (_P,) * 5,
     "flsq_knn_banded": (_P,) * 8 + (_I,) * 5 + (_P,) * 6,
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "flsq_fpfh_boxes": (_P, _P, _P, _I, _I, _P, _P),
     "flsq_fpfh_spfh": (_P,) * 9 + (_I, _I, _F, _P, _P),
     "flsq_fpfh_agg": (_P,) * 8 + (_I, _I, _F, _P, _P),
+    "flsq_eigh3": (_P,) * 6 + (_I,) * 8 + (_P, _P),
+    "flsq_propagate": (_P,) * 9 + (_I, _I, _P, _P),
 }
 
 
@@ -204,8 +207,9 @@ def require_batch(b: int) -> None:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-            device: torch.device) -> None:
-    """Validate a kernel operand before its pointer is passed to C."""
+            device: torch.device, contiguous: bool = True) -> None:
+    """Validate a kernel operand before its pointer is passed to C (a
+    kernel that takes strides asks for no contiguity)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -213,5 +217,5 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")

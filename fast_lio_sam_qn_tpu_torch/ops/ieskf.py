@@ -11,14 +11,17 @@ and ``update_surfel_ext`` / ``update_ext`` re-associate the planes at the
 current pose and extrinsic in every iteration.
 
 Every product is plain fp32 (TF32 is off package-wide), the reference's
-``precision="highest"``.  ``propagate`` walks the IMU samples in a Python
-loop, as the reference's ``lax.scan``; what does not depend on the state
-(bias-corrected rates, step lengths, the per-step rotation increments and
-the state-free blocks of the transition) is computed for every sample at
-once, with the same arithmetic.  The 18x18 and 24x24 solves and
-inverses use the ``_ex`` forms, which skip the host-side error check.  The
-plane fits use the struct-of-arrays Jacobi solver (``linalg3.eigh3``), as
-the reference's.
+``precision="highest"``.  ``propagate`` computes what does not depend on
+the state (bias-corrected rates, step lengths, the per-step rotation
+increments, the state-free blocks of the transition, the process noise;
+the same for the tail to t_end) for every sample at once
+(``_state_free``); the state-dependent chain over the samples, the
+reference's ``lax.scan``, is kernel K7 (csrc/propagate.cu, one CTA a
+scan) on the card and a Python loop in ``propagate_plain`` on the CPU,
+with the same arithmetic.  The 18x18 and 24x24 solves and inverses use
+the ``_ex`` forms, which skip the host-side error check.  The plane fits
+use the struct-of-arrays Jacobi solver (``linalg3.eigh3``, kernel K6 on
+the card), as the reference's.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from . import hashgrid, linalg3, se3, surfel_map
 
 # error-state layout
@@ -153,40 +157,74 @@ def _process_noise(noise, dt, dim=STATE_DIM):
                      dim=-1)
 
 
-def propagate(state: NavState, P, imu_t, gyro, acc, imu_mask, t_start, t_end,
-              noise):
-    """Forward-propagate through the scan's IMU samples (padded, masked):
-    returns the state at t_end, its covariance and the per-sample pose log
-    for deskew.  noise (4,) = [gyr_cov, acc_cov, b_gyr_cov, b_acc_cov];
-    with a 24x24 P (the extrinsic co-estimated), (6,) with the extrinsic's
-    random walk (rotation, translation) appended.  Shape-generic in P: the
-    extrinsic block and its cross-covariances ride through F P F^T."""
+class _Steps(NamedTuple):
+    """The state-free part of a propagation: per sample (K rows) and for
+    the tail to t_end."""
+
+    w_c: torch.Tensor      # (K, 3) bias-corrected gyro
+    a_c: torch.Tensor      # (K, 3) bias-corrected accelerometer
+    t_out: torch.Tensor    # (K,) the last valid sample's time (t_start
+    #                        before any): the log's times
+    dt: torch.Tensor       # (K,) step lengths, 0 where masked
+    rot: torch.Tensor      # (K, 3, 3) Exp(w_c dt)
+    F_free: torch.Tensor   # (K, dim, dim) the transitions' free blocks
+    q: torch.Tensor        # (K, dim) the process noise's diagonal
+    at: torch.Tensor       # (3,) the tail's acceleration (0 under dropout)
+    dt_tail: torch.Tensor  # () t_end - t_last, clamped at 0
+    rot_tail: torch.Tensor  # (3, 3) Exp(wt dt_tail), wt the tail's rate
+    F_tail: torch.Tensor   # (dim, dim) the tail's free blocks
+    q_tail: torch.Tensor   # (dim,)
+    any_imu: torch.Tensor  # () bool
+
+
+def _state_free(state: NavState, dim, imu_t, gyro, acc, imu_mask, t_start,
+                t_end, noise) -> _Steps:
+    """Everything of a propagation that does not depend on the state's
+    R, p, v or P, for every sample at once: the biases and gravity are
+    constant during propagation, and each step's previous time is the last
+    valid sample's (t_start before any)."""
     k = imu_t.shape[0]
-    dev = P.device
-    dim = P.shape[0]
-    # the state-free part of every step, for all samples at once: the
-    # biases and gravity are constant during propagation, and each step's
-    # previous time is the last valid sample's (t_start before any)
     w_c = gyro - state.bg
     a_c = acc - state.ba
-    idx = torch.arange(k, device=dev)
+    idx = torch.arange(k, device=imu_t.device)
     last = torch.cummax(torch.where(imu_mask, idx, -1), dim=0).values
     t_out = torch.where(last >= 0, imu_t[torch.clamp(last, min=0)], t_start)
     t_prev = torch.cat([t_start.reshape(1), t_out[:-1]])
     dt = torch.where(imu_mask, torch.clamp(imu_t - t_prev, min=0.0), 0.0)
     rot = se3.so3_exp(w_c * dt[:, None])
-    F_free = _free_blocks(w_c, dt, dim)
-    Qd = torch.diag_embed(_process_noise(noise, dt, dim))
+    # tail: from the last sample to t_end with the last measurement; with
+    # no valid sample (IMU dropout) no rotation and no acceleration
+    any_imu = torch.any(imu_mask)
+    last_i = torch.clamp(torch.sum(imu_mask.to(torch.int64)) - 1,
+                         min=0).reshape(1)
+    dt_tail = torch.clamp(t_end - t_out[-1], min=0.0)
+    wt = torch.where(any_imu, gyro.index_select(0, last_i)[0] - state.bg, 0.0)
+    at = torch.where(any_imu, acc.index_select(0, last_i)[0] - state.ba, 0.0)
+    return _Steps(
+        w_c=w_c, a_c=a_c, t_out=t_out, dt=dt, rot=rot,
+        F_free=_free_blocks(w_c, dt, dim), q=_process_noise(noise, dt, dim),
+        at=at, dt_tail=dt_tail,
+        rot_tail=se3.so3_exp(wt * dt_tail),
+        F_tail=_free_blocks(wt, dt_tail, dim),
+        q_tail=_process_noise(noise, dt_tail, dim), any_imu=any_imu)
 
+
+def propagate_plain(state: NavState, P, imu_t, gyro, acc, imu_mask, t_start,
+                    t_end, noise):
+    """``propagate`` one torch op at a time: the samples in a Python loop,
+    as the reference's ``lax.scan``."""
+    st = _state_free(state, P.shape[0], imu_t, gyro, acc, imu_mask, t_start,
+                     t_end, noise)
+    Qd = torch.diag_embed(st.q)
     R, p, v, Pc = state.R, state.p, state.v, P
     lR, lp, lv = [], [], []
-    for i in range(k):
-        m_i, dt_i = imu_mask[i], dt[i]
-        a_w = R @ a_c[i] + state.grav
-        R_new = se3.compose3(R, rot[i])
+    for i in range(imu_t.shape[0]):
+        m_i, dt_i = imu_mask[i], st.dt[i]
+        a_w = R @ st.a_c[i] + state.grav
+        R_new = se3.compose3(R, st.rot[i])
         p_new = p + v * dt_i + 0.5 * a_w * dt_i * dt_i
         v_new = v + a_w * dt_i
-        F = _with_state_blocks(F_free[i], R, a_c[i], dt_i)
+        F = _with_state_blocks(st.F_free[i], R, st.a_c[i], dt_i)
         P_new = F @ Pc @ F.T + Qd[i]
         R = torch.where(m_i, R_new, R)
         p = torch.where(m_i, p_new, p)
@@ -195,28 +233,87 @@ def propagate(state: NavState, P, imu_t, gyro, acc, imu_mask, t_start, t_end,
         lR.append(R)
         lp.append(p)
         lv.append(v)
-    t_last = t_out[-1]
-    # tail: propagate from the last sample to t_end with the last
-    # measurement; with no valid sample (IMU dropout) keep a constant
-    # velocity and no rotation instead of integrating raw gravity
-    any_imu = torch.any(imu_mask)
-    last_i = torch.clamp(torch.sum(imu_mask.to(torch.int64)) - 1,
-                         min=0).reshape(1)
-    dt_tail = torch.clamp(t_end - t_last, min=0.0)
-    wt = torch.where(any_imu, gyro.index_select(0, last_i)[0] - state.bg, 0.0)
-    at = torch.where(any_imu, acc.index_select(0, last_i)[0] - state.ba, 0.0)
-    a_w = torch.where(any_imu, R @ at + state.grav, 0.0)
+    dt_tail = st.dt_tail
+    a_w = torch.where(st.any_imu, R @ st.at + state.grav, 0.0)
     s_end = NavState(
-        R=se3.compose3(R, se3.so3_exp(wt * dt_tail)),
+        R=se3.compose3(R, st.rot_tail),
         p=p + v * dt_tail + 0.5 * a_w * dt_tail * dt_tail,
         v=v + a_w * dt_tail,
         bg=state.bg, ba=state.ba, grav=state.grav,
     )
-    F = _step_jacobians(R, at, wt, dt_tail, dim)
-    P_end = F @ Pc @ F.T + torch.diag(_process_noise(noise, dt_tail, dim))
-    log = PropagationLog(t=t_out, R=torch.stack(lR), p=torch.stack(lp),
-                         v=torch.stack(lv), w=w_c, valid=imu_mask)
+    F = _with_state_blocks(st.F_tail, R, st.at, dt_tail)
+    P_end = F @ Pc @ F.T + torch.diag(st.q_tail)
+    log = PropagationLog(t=st.t_out, R=torch.stack(lR), p=torch.stack(lp),
+                         v=torch.stack(lv), w=st.w_c, valid=imu_mask)
     return s_end, P_end, log
+
+
+def propagate(state: NavState, P, imu_t, gyro, acc, imu_mask, t_start, t_end,
+              noise):
+    """Forward-propagate through the scan's IMU samples (padded, masked):
+    returns the state at t_end, its covariance and the per-sample pose log
+    for deskew.  noise (4,) = [gyr_cov, acc_cov, b_gyr_cov, b_acc_cov];
+    with a 24x24 P (the extrinsic co-estimated), (6,) with the extrinsic's
+    random walk (rotation, translation) appended.  Shape-generic in P: the
+    extrinsic block and its cross-covariances ride through F P F^T.
+
+    On CUDA tensors the state-dependent chain, every sample and the tail,
+    is kernel K7 (csrc/propagate.cu, one CTA); the state-free part is
+    ``_state_free`` in torch, as in ``propagate_plain``.  No host read."""
+    if not kernels.on_cuda("propagate", P):
+        return propagate_plain(state, P, imu_t, gyro, acc, imu_mask, t_start,
+                               t_end, noise)
+    k, dim = imu_t.shape[0], P.shape[0]
+    if k < 1 or dim not in (STATE_DIM, STATE_DIM_EXT):
+        raise ValueError(f"propagate: {k} samples, a {dim}-dim P; the kernel "
+                         f"takes 1 or more samples and 18 or 24 dims")
+    st = _state_free(state, dim, imu_t, gyro, acc, imu_mask, t_start, t_end,
+                     noise)
+    dev = P.device
+    R, p, v, grav, P0 = (t.contiguous() for t in (state.R, state.p, state.v,
+                                                  state.grav, P))
+    for t, name, shape in ((R, "R", (3, 3)), (p, "p", (3,)), (v, "v", (3,)),
+                           (grav, "grav", (3,)), (P0, "P", (dim, dim))):
+        kernels.require(t, f"propagate {name}", torch.float32, shape, dev)
+    # per-sample rows [dt, a_c, rot, q], the tail's as row K
+    table = torch.cat([
+        torch.cat([st.dt[:, None], st.a_c, st.rot.reshape(k, 9), st.q], 1),
+        torch.cat([st.dt_tail.reshape(1), st.at, st.rot_tail.reshape(9),
+                   st.q_tail])[None]])
+    F_free = torch.cat([st.F_free, st.F_tail[None]])
+    mask = imu_mask.contiguous()
+    kernels.require(mask, "propagate imu_mask", torch.bool, (k,), dev)
+    out = _launch_propagate(R, p, v, grav, P0, mask, table, F_free,
+                            st.any_imu.reshape(1))
+    propagate.launches += 1
+    nav, P_end, lR, lp, lv = torch.split(
+        out, [15, dim * dim, 9 * k, 3 * k, 3 * k])
+    s_end = NavState(R=nav[:9].view(3, 3), p=nav[9:12], v=nav[12:15],
+                     bg=state.bg, ba=state.ba, grav=state.grav)
+    log = PropagationLog(t=st.t_out, R=lR.view(k, 3, 3), p=lp.view(k, 3),
+                         v=lv.view(k, 3), w=st.w_c, valid=imu_mask)
+    return s_end, P_end.view(dim, dim), log
+
+
+propagate.launches = 0
+
+
+def _launch_propagate(R, p, v, grav, P, mask, table, F_free, any_imu):
+    """K7 on contiguous operands (csrc/propagate.cu's contract): returns
+    its flat output, [R, p, v at t_end (15), P (dim^2), the log's R (K,
+    9), p (K, 3), v (K, 3)]."""
+    k, dim = mask.shape[0], P.shape[0]
+    out = torch.empty(15 + dim * dim + 15 * k, dtype=torch.float32,
+                      device=P.device)
+    lib = kernels.load_library()
+    with torch.cuda.device(P.device):
+        status = lib.flsq_propagate(
+            R.data_ptr(), p.data_ptr(), v.data_ptr(), grav.data_ptr(),
+            P.data_ptr(), mask.data_ptr(), table.data_ptr(),
+            F_free.data_ptr(), any_imu.data_ptr(), k, dim, out.data_ptr(),
+            kernels.stream(P))
+    kernels.check_status(status, "propagate")
+    return out
 
 
 def deskew(points_l, rel_t, mask, log: PropagationLog, state_end: NavState,

@@ -4,16 +4,23 @@ fast_lio_sam_qn_tpu/ops/linalg3.py.
 The 3x3 eigensolver is the same struct-of-arrays cyclic Jacobi (6 sweeps)
 as the reference, not ``torch.linalg.eigh``: eigenvector signs and the
 order of equal eigenvalues must follow the reference, because normals and
-plane covariances are built from them.
+plane covariances are built from them.  ``eigh3_soa`` is the wrapper of
+kernel K6 (csrc/eigh3.cu, one thread a matrix, the sweeps in registers),
+the counterpart of the loop that XLA fuses in the reference; on a CPU
+tensor it runs ``eigh3_soa_plain``, the same arithmetic one torch op at a
+time, which the kernel equals bit for bit on the card.  ``eigh3`` and every
+caller of either go through the wrapper.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
+
 _EPS = 1e-12
 
 
-def eigh3_soa(a00, a01, a02, a11, a12, a22, sweeps: int = 6):
+def eigh3_soa_plain(a00, a01, a02, a11, a12, a22, sweeps: int = 6):
     """Cyclic-Jacobi symmetric 3x3 eigendecomposition in struct-of-arrays
     form: six (...,) component tensors in, ((e0, e1, e2) ascending,
     v[i][j] eigenvector components, column j per eigenvalue j) out."""
@@ -59,6 +66,49 @@ def eigh3_soa(a00, a01, a02, a11, a12, a22, sweeps: int = 6):
     evals = tuple(pick(k, e) for k in range(3))
     evecs = [[pick(k, v[i]) for k in range(3)] for i in range(3)]
     return evals, evecs
+
+
+def eigh3_soa(a00, a01, a02, a11, a12, a22, sweeps: int = 6):
+    """``eigh3_soa_plain`` — kernel K6 on CUDA tensors.  The six components
+    share one shape; each is read at its own stride where its flattening
+    is a view (column views such as ``cov[:, 0]``), else made contiguous.
+    The outputs are contiguous tensors of that shape."""
+    comps = (a00, a01, a02, a11, a12, a22)
+    if not kernels.on_cuda("eigh3_soa", a00):
+        return eigh3_soa_plain(*comps, sweeps=sweeps)
+    shape = a00.shape
+    for c in comps:
+        kernels.require(c, "eigh3_soa component", torch.float32, shape,
+                        a00.device, contiguous=False)
+    n = a00.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"eigh3_soa: {n} matrices; the kernel takes < 2^31")
+    out = torch.empty((12, n), dtype=torch.float32, device=a00.device)
+    if n:
+        _launch_eigh3([c.reshape(-1) for c in comps], sweeps, out)
+        eigh3_soa.launches += 1
+    rows = out.view((12,) + shape).unbind(0)
+    return tuple(rows[:3]), [list(rows[3 + 3 * i:6 + 3 * i])
+                             for i in range(3)]
+
+
+eigh3_soa.launches = 0
+
+
+def _launch_eigh3(flat, sweeps: int, out):
+    """K6 on six (n,) fp32 views, each read at its stride, into out (12,
+    n): the eigenvalues ascending, then component i of eigenvector j in row
+    3 + 3 i + j (csrc/eigh3.cu's contract)."""
+    strides = [f.stride(0) for f in flat]
+    if max(strides) >= 2 ** 31:
+        raise ValueError(f"eigh3_soa: strides {strides}; the kernel takes "
+                         f"< 2^31")
+    lib = kernels.load_library()
+    with torch.cuda.device(out.device):
+        status = lib.flsq_eigh3(*(f.data_ptr() for f in flat), *strides,
+                                out.shape[1], sweeps, out.data_ptr(),
+                                kernels.stream(out))
+    kernels.check_status(status, "eigh3")
 
 
 def eigh3(A: torch.Tensor, sweeps: int = 6):

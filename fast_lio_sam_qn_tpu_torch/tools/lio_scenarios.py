@@ -8,6 +8,18 @@ shared by ``chip_smoke.py`` and the CPU tests:
   (tests/test_extrinsic.py:108-212): a surfel map built from the truth,
   then 50 scans of the excited loop at 10 Hz from a LiDAR mounted 3 / 2 /
   2.5 deg and (8, -5, 3) cm off the configured identity.
+
+and the inputs on which kernels K6 (``linalg3.eigh3_soa``) and K7
+(``ieskf.propagate``) are held against their plain versions (on the card)
+and the plain versions against the JAX package (on the CPU):
+
+- ``covariance_rows``: (n, 6) covariances of surfel-like patches (thin
+  planes, edges, blobs), the refit's kind of input;
+- ``eigh3_edge_cases``: the refit's degenerate inputs: zero, rank 1,
+  repeated eigenvalues, 1e3 scale, no rows;
+- ``propagate_case``: a scan's IMU samples of the excited loop with 64
+  valid samples, one, duplicate stamps (dt = 0) or none (dropout), at 18
+  or 24 dims.
 """
 from __future__ import annotations
 
@@ -139,3 +151,103 @@ def extrinsic_convergence(device, n_scans: int = EXT_SCANS, prof=None
     return ExtrinsicRun(rot_err, state.ext.t.cpu().numpy() - t_true,
                         np.asarray(pose_errs),
                         lambda: lio.process_scan(before, *inputs))
+
+
+# ---------------------------------------------------------------------------
+# inputs of K6 and K7
+# ---------------------------------------------------------------------------
+
+def _rotations(rng, n):
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def _soa(A) -> np.ndarray:
+    """(n, 3, 3) symmetric -> (n, 6) float32 [a00, a01, a02, a11, a12,
+    a22]."""
+    return np.stack([A[:, 0, 0], A[:, 0, 1], A[:, 0, 2], A[:, 1, 1],
+                     A[:, 1, 2], A[:, 2, 2]], -1).astype(np.float32)
+
+
+def _from_eigen(rng, evals) -> np.ndarray:
+    R = _rotations(rng, len(evals))
+    return _soa(R @ (np.asarray(evals)[:, :, None] * np.swapaxes(R, 1, 2)))
+
+
+def covariance_rows(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 6) covariances of point patches in a 0.5 m voxel: thin planes
+    (a few mm thick), edges and blobs, randomly oriented."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 3, n)
+    spread = rng.uniform(0.005, 0.04, (n, 1))
+    shape = np.where(kind[:, None] == 0, [1e-5, 0.5, 1.0],
+                     np.where(kind[:, None] == 1, [1e-4, 1e-3, 1.0],
+                              [0.3, 0.6, 1.0]))
+    return _from_eigen(rng, spread * shape)
+
+
+def eigh3_edge_cases(seed: int = 0) -> dict:
+    """name -> (n, 6) components of the refit's degenerate inputs."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(64, 3))
+    repeated = np.repeat([[1.0, 1.0, 2.0], [2.0, 1.0, 1.0], [3.0, 3.0, 3.0],
+                          [0.0, 0.0, 1.0]], 8, axis=0)
+    diag = np.zeros((len(repeated), 3, 3))
+    diag[:, [0, 1, 2], [0, 1, 2]] = repeated
+    B = rng.normal(size=(64, 3, 3))
+    return {
+        "zero": np.zeros((16, 6), np.float32),
+        "rank1": _soa(u[:, :, None] * u[:, None, :]),
+        "repeated": np.concatenate([_soa(diag), _from_eigen(rng, repeated)]),
+        "scale1e3": _soa(1e3 * B @ np.swapaxes(B, 1, 2)),
+        "empty": np.zeros((0, 6), np.float32),
+    }
+
+
+PROPAGATE_CASES = ("full", "one", "duplicate", "dropout")
+PROPAGATE_K = 64
+
+
+def propagate_case(case: str, dim: int = 18, seed: int = 0):
+    """``ieskf.propagate``'s inputs as numpy: (nav [R, p, v, bg, ba, grav],
+    P0 (dim, dim), imu_t (64,), gyro, acc (64, 3), imu_mask, t_start,
+    t_end, noise) for one 0.2 s scan of the excited loop at 320 Hz; case
+    "full": 64 valid samples, "one": a single valid sample, "duplicate":
+    holes and repeated stamps (dt = 0), "dropout": none valid."""
+    k = PROPAGATE_K
+    traj = sim.Trajectory.loop_excited()
+    ts, gyro, acc = sim.simulate_imu(traj, 2.0, 2.2, rate=k / 0.2,
+                                     gyro_noise=0.01, acc_noise=0.05,
+                                     seed=seed)
+    t = ts[:k].astype(np.float32)
+    m = np.ones(k, bool)
+    if case == "one":
+        m[:] = False
+        m[17] = True
+    elif case == "duplicate":
+        t[5:8] = t[4]
+        t[30:33] = t[29]
+        m[40:44] = False
+    elif case == "dropout":
+        m[:] = False
+    elif case != "full":
+        raise ValueError(f"unknown propagate case {case!r}")
+    T0 = traj.pose(2.0)
+    v0, _, _ = traj.derivatives(2.0)
+    nav = [T0[:3, :3], T0[:3, 3], v0, [0.01, -0.02, 0.005],
+           [0.05, 0.02, -0.03], [0.0, 0.0, -9.81]]
+    nav = [np.asarray(x, np.float32) for x in nav]
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(dim, dim)) * 1e-3
+    P0 = (np.diag(np.linspace(1e-4, 1e-2, dim)) + B @ B.T).astype(np.float32)
+    noise = [0.1, 0.1, 1e-4, 1e-4] + ([1e-5, 1e-5] if dim == 24 else [])
+    return (nav, P0, t, gyro[:k], acc[:k], m, np.float32(2.0),
+            np.float32(2.205), np.asarray(noise, np.float32))

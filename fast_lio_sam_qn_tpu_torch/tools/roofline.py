@@ -11,8 +11,9 @@ the dictionaries carry ``gflop`` where the JAX tool has ``mxu_gflop`` and
 ``vpu_gop``.  Where the work depends on the data (K2's kept (block, tile)
 pairs, the FPFH kernels' in-radius pairs) the count is this run's.
 
-- ``bound``, ``knn_bound``, ``radius_bound``: the kernel table's bounds
-  (``chip_smoke.py``'s ``bound_ms``).
+- ``bound``, ``knn_bound``, ``radius_bound``, ``eigh3_bound``,
+  ``propagate_bound``: the kernel table's bounds (``chip_smoke.py``'s
+  ``bound_ms``).
 - ``block_tile_survivors``, ``stage_budget``: K3-K5 on one cloud in the
   port's Morton order: the (block, tile) pairs the keep rule keeps, the
   work of the kernel as designed (``bound_ms``) and the in-radius work of
@@ -78,6 +79,33 @@ def bound(flops, nbytes):
     t_ops = float(flops) / FP32_FLOPS * 1e3
     t_bytes = float(nbytes) / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# K6 (csrc/eigh3.cu) a matrix: six components in, 3 eigenvalues and 9
+# eigenvector components out; 18 rotations of 53 fp32 ops and 3
+# transcendentals (each counted as one op), then the rank pick's 6
+# compares and 3 adds
+EIGH3_BYTES = 4 * (6 + 12)
+EIGH3_FLOPS = 18 * (53 + 3) + 9
+
+
+def eigh3_bound(n):
+    """K6's bound on n matrices (``bound``)."""
+    return bound(n * EIGH3_FLOPS, n * EIGH3_BYTES)
+
+
+def propagate_bound(dim, k, n_steps):
+    """K7's bound, the whole of ``ieskf.propagate`` on one scan of k IMU
+    samples of which n_steps - 1 are valid (the tail is the last step):
+    each step's F P F^T (2 dim^3 FMAs, 2 flops each), diag(Q) (dim^2
+    adds) and ~150 flops of nav state and state-free precompute; the
+    inputs (the nav state's 24 floats, P, the samples' time, gyro, acc and
+    mask, t_start, t_end, 6 noise floats) read once, the outputs (R, p, v,
+    P and the log's t, R, p, v, w and mask) written once."""
+    flops = n_steps * (4 * dim ** 3 + dim * dim + 150)
+    nbytes = (4 * (24 + dim * dim + 7 * k + 8) + k
+              + 4 * (15 + dim * dim + 19 * k) + k)
+    return bound(flops, nbytes)
 
 
 def per_run(mask, rows):
@@ -294,13 +322,17 @@ def traced_ops(fn, *args):
 
 
 def _plane_fit_ops():
-    """(ops, bytes a row) of ``surfel_map._plane_from``: the covariance, the
-    6-sweep Jacobi eigensolve (``linalg3.eigh3_soa``) and the plane."""
-    from ..ops import surfel_map
+    """(ops, bytes a row) of ``surfel_map._plane_from`` as the card runs
+    it: the covariance and the plane traced, the 6-sweep Jacobi eigensolve
+    one launch of K6 (``EIGH3_BYTES`` a row) in place of the plain
+    version's elementwise ops."""
+    from ..ops import linalg3, surfel_map
 
     one = torch.ones(1)
-    return traced_ops(surfel_map._plane_from, one, torch.ones(1, 3),
-                      torch.ones(1, 6), torch.ones(1, 3))
+    ops, row = traced_ops(surfel_map._plane_from, one, torch.ones(1, 3),
+                          torch.ones(1, 6), torch.ones(1, 3))
+    s_ops, s_row = traced_ops(linalg3.eigh3_soa_plain, *[one] * 6)
+    return ops - s_ops + 1, row - s_row + EIGH3_BYTES
 
 
 def _claim_rows(label, n, t, probes):
@@ -341,8 +373,9 @@ def insert_budget(say=None):
     Each row: (stage, the lines it counts, ops, rows touched, bytes moved),
     ops being the table-scale gathers, scatters, sorts, fills and passes
     (and for the two plane fits, the elementwise ops of ``_plane_from``,
-    traced on one row).  Returns {rows, table_ops, bytes, hbm_bound_ms};
-    ``say`` (e.g. print) gets one line a row and the total."""
+    traced on one row, its eigensolve one K6 launch).  Returns {rows,
+    table_ops, bytes, hbm_bound_ms}; ``say`` (e.g. print) gets one line a
+    row and the total."""
     from ..ops.hashgrid import NUM_PROBES
     from . import profile_insert as pi
 

@@ -168,7 +168,7 @@ def test_sources_name_no_jax_module():
 
 def test_port_is_lint_clean():
     csrc = sorted(glob.glob(os.path.join(PKG, "csrc", "*")))
-    assert len(csrc) == 8
+    assert len(csrc) == 10
     errors = lint_paths([PKG, SMOKE] + csrc)
     assert not errors, "\n".join(errors)
 

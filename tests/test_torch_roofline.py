@@ -197,7 +197,8 @@ def test_insert_budget_totals_are_row_sums():
     assert c["hbm_bound_ms"] == pytest.approx(c["bytes"] * MS_PER_BYTE)
     fits = [r for r in c["rows"] if "Jacobi" in r["stage"]]
     assert [r["rows"] for r in fits] == [32768, 8192]
-    assert fits[0]["ops"] > 500
+    # each fit: its elementwise ops, the eigensolve one launch of K6
+    assert fits[0]["ops"] == fits[1]["ops"] > 1
     assert sum("claim rounds" in r["stage"] for r in c["rows"]) == 2
     assert all(r["ops"] > 0 and r["bytes"] > 0 for r in c["rows"])
 
