@@ -1573,6 +1573,7 @@ def lio_golden(dev, card):
     from fast_lio_sam_qn_tpu_torch.run import sim_lio_stream
     from fast_lio_sam_qn_tpu_torch.tools import lio_scenarios as ls
     from fast_lio_sam_qn_tpu_torch.utils import evaluation
+    from fast_lio_sam_qn_tpu_torch.utils.profiling import Profiler
 
     cfg = golden_config()
     world, traj = ls.golden_world()
@@ -1598,7 +1599,7 @@ def lio_golden(dev, card):
 
     reset_launches()
     mem = PhaseMemory(dev)
-    pipe = FastLioSamQnPipeline(cfg, device=dev)
+    pipe = FastLioSamQnPipeline(cfg, profiler=Profiler(dev), device=dev)
     gt, feed_ms = [], []
     for pose, cloud, mask, t1, gt_pose in feed:
         a = time.perf_counter()
@@ -1897,8 +1898,8 @@ def cli_run(args, spans=None):
     if spans is not None:
         class Both(Profiler):
             @contextlib.contextmanager
-            def span(self, name):
-                with Profiler.span(self, name), spans.span(name):
+            def span(self, name, scan=None):
+                with Profiler.span(self, name, scan), spans.span(name):
                     yield
 
         run.Profiler = Both

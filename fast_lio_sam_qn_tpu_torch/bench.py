@@ -277,7 +277,7 @@ def pipeline_per_scan(null_ms, n_prefill=N_PREFILL_KF, n_live=N_LIVE,
     world = sim.World.room(size=80.0, height=6.0, n_boxes=24, seed=11)
     T0_inv = np.linalg.inv(traj.pose(0.0))
 
-    pipe = FastLioSamQnPipeline(cfg, profiler=Profiler(), device=device)
+    pipe = FastLioSamQnPipeline(cfg, device=device)
     step_t = 1.6 / speed  # 1.6 m spacing > the 1.5 m keyframe gate
     t_pre = -(n_prefill + 1) * step_t - 31.0  # clear the 30 s timediff
     raw_n = 4 * cfg.lio.max_points_per_scan

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 
 class KeyframeStore(NamedTuple):
     clouds: torch.Tensor           # (K, P, 3) body frame, voxelized
@@ -54,7 +56,8 @@ def append(store: KeyframeStore, cloud, cloud_mask, pose, pose_corrected,
            timestamp: float, intensity=None) -> KeyframeStore:
     """Write keyframe ``count`` in place and return the store with count+1.
     Raises when the store is full."""
-    i = int(store.count)
+    with profiling.sync("kf_count"):
+        i = int(store.count)
     if i >= store.capacity:
         raise ValueError(f"keyframe store is full ({store.capacity})")
     store.clouds[i] = cloud
@@ -62,7 +65,8 @@ def append(store: KeyframeStore, cloud, cloud_mask, pose, pose_corrected,
     store.intensities[i] = 0.0 if intensity is None else intensity
     store.poses[i] = pose
     store.poses_corrected[i] = pose_corrected
-    store.timestamps[i] = timestamp
+    with profiling.sync("kf_stamp"):      # a host float written
+        store.timestamps[i] = timestamp
     return store._replace(count=store.count + 1)
 
 

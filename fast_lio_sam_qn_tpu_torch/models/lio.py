@@ -18,13 +18,13 @@ numpy arrays reach the device in one transfer.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops import hashgrid, ieskf, se3, surfel_map, voxel
+from ..utils import profiling
 from ..utils.config import LioConfig
 
 _MEAS_VAR = 0.0025     # lidar point-to-plane noise variance (m^2)
@@ -59,9 +59,10 @@ class ScanResult(NamedTuple):
 
 class LIO:
     """Host-side handle owning the config, the device and the per-scan
-    step.  ``profiler`` (optional, with a ``span(name)`` context manager)
-    wraps each stage of ``process_scan``: preprocess, propagate, deskew,
-    update, evict, insert."""
+    step.  ``profiler`` (optional: ``utils.profiling.Profiler``, or any
+    object with a ``span(name)`` context manager) gets the span ``scan``
+    around ``process_scan`` and, inside it, one around each stage:
+    preprocess, propagate, deskew, update, evict, insert."""
 
     def __init__(self, cfg: Optional[LioConfig] = None, imu_cap: int = 64,
                  device: torch.device | str = "cuda", profiler=None):
@@ -83,10 +84,8 @@ class LIO:
         self._noise = torch.tensor(np.array(noise, np.float32),
                                    device=self.device)
 
-    def _span(self, name: str):
-        if self.profiler is None:
-            return contextlib.nullcontext()
-        return self.profiler.span(name)
+    def _span(self, name: str, scan=None):
+        return profiling.span(self.profiler, name, scan)
 
     # ------------------------------------------------------------------
     def init_state(self, gravity_dir=None, gyro_bias=None,
@@ -140,10 +139,16 @@ class LIO:
         float32 transfer (masks as 0/1)."""
         if all(isinstance(a, torch.Tensor) for a in arrays):
             return [a.to(self.device) for a in arrays]
-        host = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
-                for a in arrays]
+        host = []
+        for a in arrays:
+            if isinstance(a, torch.Tensor):
+                with profiling.sync("inputs"):
+                    a = a.cpu()
+            host.append(np.asarray(a))
         flat = torch.from_numpy(np.concatenate(
-            [a.astype(np.float32).reshape(-1) for a in host])).to(self.device)
+            [a.astype(np.float32).reshape(-1) for a in host]))
+        with profiling.sync("inputs"):
+            flat = flat.to(self.device)
         out, at = [], 0
         for a in host:
             x = flat[at:at + a.size].reshape(a.shape)
@@ -166,6 +171,12 @@ class LIO:
         from the scan start and a mask, (K,) IMU samples in (t_prev, t_end]
         with (K, 3) gyro / acc and a mask, the scan's start and end times.
         Returns the new state and the scan's result, on the LIO's device."""
+        with self._span("scan", scan=state.scans):
+            return self._scan(state, pts_l, rel_t, mask, imu_t, gyro, acc,
+                              imu_mask, t_start, t_end, inten)
+
+    def _scan(self, state, pts_l, rel_t, mask, imu_t, gyro, acc, imu_mask,
+              t_start, t_end, inten):
         c = self.cfg
         if inten is None:
             inten = np.zeros(len(pts_l), np.float32)

@@ -37,6 +37,7 @@ import torch
 
 from .. import kernels
 from ..ops import fpfh, fpfh_stream, gicp, knn_cuda, quatro, se3, voxel
+from ..utils import profiling
 from ..utils.config import LoopClosureConfig
 from .keyframes import KeyframeStore
 
@@ -59,11 +60,14 @@ def fetch_closest_keyframe_idx(store: KeyframeStore, query_pose, query_time,
     active = idx < (store.count - 1)
     d = torch.linalg.norm(
         store.poses_corrected[:, :3, 3] - query_pose[:3, 3][None], dim=-1)
-    radius = torch.tensor(radius, dtype=torch.float32, device=dev)
+    with profiling.sync("loop_fetch"):   # a copy from host memory
+        radius = torch.tensor(radius, dtype=torch.float32, device=dev)
     old_enough = (query_time - store.timestamps) > timediff
     ok = active & old_enough & (d < radius)
     best = torch.argmin(torch.where(ok, d, radius * 3.0))
-    return torch.where(ok[best], best, -1).to(torch.int32)
+    with profiling.sync("loop_fetch"):   # a 0-d index is read
+        hit = ok[best]
+    return torch.where(hit, best, -1).to(torch.int32)
 
 
 def _accumulate_submap(store: KeyframeStore, center_idx: int,
@@ -312,20 +316,23 @@ class LoopClosure:
         candidate (the reference returns early otherwise), and the graph
         measurement pose_from.between(pose_to) on the poses the clouds were
         built with.  Returns (RegistrationOutput, meas (4, 4))."""
-        closest = int(fetch_closest_keyframe_idx(
+        closest = fetch_closest_keyframe_idx(
             store, store.poses_corrected[query_idx],
             store.timestamps[query_idx], self.cfg.loop_detection_radius,
-            self.cfg.loop_detection_timediff_threshold))
+            self.cfg.loop_detection_timediff_threshold)
+        with profiling.sync("loop_closest"):
+            closest = int(closest)
         dev = store.clouds.device
         if closest >= 0:
             reg = self.perform_loop_closure(store, query_idx, closest)
         else:
             false = torch.zeros((), dtype=torch.bool, device=dev)
+            with profiling.sync("loop_none"):  # a copy from host memory
+                none = torch.tensor(-1, dtype=torch.int32, device=dev)
             reg = RegistrationOutput(
                 pose_between=torch.eye(4, dtype=torch.float32, device=dev),
                 score=torch.zeros((), dtype=torch.float32, device=dev),
-                is_valid=false, is_converged=false,
-                closest_idx=torch.tensor(-1, dtype=torch.int32, device=dev))
+                is_valid=false, is_converged=false, closest_idx=none)
         pose_from = se3.compose(reg.pose_between,
                                 store.poses_corrected[query_idx])
         pose_to = store.poses_corrected[max(closest, 0)]

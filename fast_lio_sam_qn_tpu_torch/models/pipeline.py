@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from ..ops import pgo, se3, voxel
+from ..utils import profiling
 from ..utils.config import PipelineConfig
-from ..utils.profiling import Profiler
 from . import keyframes as kf
 from .loop_closure import LoopClosure
 
@@ -56,7 +56,8 @@ def _pull(*tensors):
     """Every tensor to the host in one transfer, as numpy arrays of their
     own shapes (values round-trip exactly through float64)."""
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
+    with profiling.sync("pull"):
+        host = flat.cpu().numpy()
     out, at = [], 0
     for t in tensors:
         n = t.numel()
@@ -80,14 +81,15 @@ def _feed_step(odom_delta, last_odom_pose, last_corrected, last_kf_corrected,
 
 class FastLioSamQnPipeline:
     def __init__(self, cfg: Optional[PipelineConfig] = None,
-                 profiler: Optional[Profiler] = None,
+                 profiler: Optional[profiling.Profiler] = None,
                  device: torch.device | str = "cuda", mesh=None):
-        """profiler records the reference's stage spans ('real', 'key_add',
-        'opt' per scan, 'loop' per tick).  device holds every tensor of the
-        pipeline's state; mesh, where given, is this rank's
+        """profiler (optional, as ``LIO``'s) gets the span 'feed' around
+        each ``feed`` and inside it the reference's stage spans ('loop' per
+        tick, 'real', 'key_add' and 'opt' per scan).  device holds every
+        tensor of the pipeline's state; mesh, where given, is this rank's
         ``parallel.mesh.Mesh`` on that device."""
         self.cfg = cfg or PipelineConfig()
-        self.profiler = profiler or Profiler()
+        self.profiler = profiler
         self.device = torch.device(device)
         self.mesh = mesh
         if mesh is not None and mesh.device != self.device:
@@ -137,12 +139,20 @@ class FastLioSamQnPipeline:
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _span(self, name: str, scan=None):
+        return profiling.span(self.profiler, name, scan)
+
     # ------------------------------------------------------------------
     def feed(self, pose, cloud_body, cloud_mask, timestamp: float,
              intensity=None):
         """One odometry + cloud pair: pose (4, 4) world <- body, cloud_body
         (P, 3) padded body-frame points with mask (P,), optional intensity
         (P,).  Returns the realtime corrected pose (4, 4) on the device."""
+        with self._span("feed", scan=len(self.realtime_poses)):
+            return self._feed(pose, cloud_body, cloud_mask, timestamp,
+                              intensity)
+
+    def _feed(self, pose, cloud_body, cloud_mask, timestamp, intensity):
         pose = self._t(pose)
         if self._next_loop_tick is None:
             self._next_loop_tick = timestamp  # timer armed at first data
@@ -152,7 +162,7 @@ class FastLioSamQnPipeline:
             self._loop_tick(self._next_loop_tick)
             self._next_loop_tick += period
 
-        with self.profiler.span("real"):
+        with self._span("real"):
             self.odom_delta, corrected, dist = _feed_step(
                 self.odom_delta, self.last_odom_pose,
                 self.last_corrected_pose, self.last_kf_corrected, pose)
@@ -168,11 +178,11 @@ class FastLioSamQnPipeline:
                                first=True, intensity=intensity)
             self.initialized = True
         elif float(dist_np) > self.cfg.keyframe_threshold:
-            with self.profiler.span("key_add"):
+            with self._span("key_add"):
                 self._add_keyframe(pose, corrected, cloud_body, cloud_mask,
                                    timestamp, first=False,
                                    intensity=intensity)
-            with self.profiler.span("opt"):
+            with self._span("opt"):
                 self._optimize_and_refresh()
         return corrected
 
@@ -246,7 +256,7 @@ class FastLioSamQnPipeline:
     def _loop_tick(self, tick_time: float):
         if not self.initialized or self.current_kf_idx == 0:
             return
-        with self.profiler.span("loop"):
+        with self._span("loop"):
             batch = self.cfg.loop.loop_batch
             if batch > 0:
                 self._loop_tick_batched(tick_time, batch)

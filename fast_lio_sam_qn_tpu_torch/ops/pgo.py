@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from . import se3
 
 PCG_CHECK = 8  # PCG iterations between host reads of the live flag
@@ -331,7 +332,8 @@ def optimize(graph: GraphState, prior_var, odom_var, gn_iters: int = 3,
         wv = (w6 * valid[:, None])[:, :, None]
         P = scatter(torch.einsum("fba,fbc->fac", Ji, Ji * wv),
                     torch.einsum("fba,fbc->fac", Jj, Jj * wv))
-        Pinv = torch.linalg.inv(P + 1e-6 * eye6)
+        with profiling.sync("pgo_inv"):   # inv reads its error flags
+            Pinv = torch.linalg.inv(P + 1e-6 * eye6)
         x = pcg(b, Pinv, lambda v: _hx(scatter, Ji, Jj, w6, valid, v) * active,
                 active, pcg_iters)
         g = gn_retract(g, x, active)
@@ -343,7 +345,9 @@ def pcg(b, Pinv, hx, active, pcg_iters: int) -> torch.Tensor:
     shared by ``optimize`` and the factor-sharded solve: ``Pinv`` (N, 6, 6)
     the inverted diagonal blocks, ``hx(v)`` H v on the active rows.  Stops
     once sum(r*r) <= 1e-10 max(r0.r0, 1e-20) or after ``pcg_iters``; the
-    host reads the live flag every ``PCG_CHECK`` iterations."""
+    host reads the live flag every ``PCG_CHECK`` iterations (the span
+    ``sync.pcg``), and the iterations run go to the open profiler's
+    ``pcg_iters``."""
     def precond(v):
         return torch.einsum("nab,nb->na", Pinv, v) * active
 
@@ -354,7 +358,8 @@ def pcg(b, Pinv, hx, active, pcg_iters: int) -> torch.Tensor:
     rz = torch.sum(rr * z)
     thr = 1e-10 * torch.clamp(torch.sum(rr * rr), min=1e-20)
     live = torch.sum(rr * rr) > thr
-    for it in range(pcg_iters):
+    n = 0
+    for n in range(1, pcg_iters + 1):
         hp = hx(p)
         alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
         rr_n = rr - alpha * hp
@@ -366,6 +371,10 @@ def pcg(b, Pinv, hx, active, pcg_iters: int) -> torch.Tensor:
         p = torch.where(live, p_n, p)
         rz = torch.where(live, rz_n, rz)
         live = live & (torch.sum(rr * rr) > thr)
-        if (it + 1) % PCG_CHECK == 0 and not bool(live):
-            break
+        if n % PCG_CHECK == 0:
+            with profiling.sync("pcg"):
+                done = not bool(live)
+            if done:
+                break
+    profiling.add("pcg_iters", n)
     return x

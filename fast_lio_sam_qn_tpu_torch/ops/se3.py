@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..utils import profiling
+
 _EPS = 1e-8
 
 
@@ -129,8 +131,9 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    with profiling.sync("make_pose"):     # a copy from host memory
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                              device=R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

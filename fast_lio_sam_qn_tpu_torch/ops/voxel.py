@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 _U32 = 0xFFFFFFFF
 
 
@@ -93,7 +95,8 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, res: float,
     # segment s spans [start[s], start[s+1]); the last one ends after the
     # last valid point, so the masked tail (weight 0 in the reference's
     # sums) does not lengthen the walk below
-    seg_start = torch.nonzero(is_head).flatten()
+    with profiling.sync("voxel"):
+        seg_start = torch.nonzero(is_head).flatten()
     n_seg = seg_start.shape[0]
     pos1 = torch.arange(1, n + 1, device=points.device)
     last_end = torch.amax(torch.where(mask_s, pos1, 0)).reshape(1)
@@ -103,7 +106,8 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, res: float,
     seg_sum = torch.zeros((n_seg, data.shape[1]), dtype=points.dtype,
                           device=points.device)
     seg_cnt = torch.zeros((n_seg,), dtype=points.dtype, device=points.device)
-    longest = int((seg_end - seg_start).max()) if n_seg else 0
+    with profiling.sync("voxel"):
+        longest = int((seg_end - seg_start).max()) if n_seg else 0
     for t in range(longest):
         pos = seg_start + t
         live = pos < seg_end

@@ -60,7 +60,7 @@ from .runtime import rosbag
 from .utils import evaluation, io, sim, sweep
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import Capacities, load_lio_yaml, load_reference_yaml
-from .utils.profiling import Profiler
+from .utils.profiling import Profiler, span
 from .utils.viz import plot_results, require_matplotlib
 
 IMU_CAP = 64
@@ -177,11 +177,8 @@ def sim_lio_stream(cfg, world, traj, n_scans, scan_hz=5.0, prof=None,
     one (pose, cloud_body, cloud_mask, t1, gt_pose) tuple per scan: the
     pose and the deskewed body cloud as tensors on ``device``, t1 the scan
     end, gt_pose the ground truth (4, 4) in the filter's world frame (the
-    body frame at t = 0).  ``prof`` (``span(name)``) gets the spans
-    ``sim`` and ``lio`` per scan and the LIO's stage spans (a host clock
-    measures what was enqueued: ``process_scan`` does not wait for the
-    device)."""
-    prof = prof or Profiler()
+    body frame at t = 0).  ``prof`` (optional, ``span(name)``) gets the
+    spans ``sim`` and ``lio`` per scan and the LIO's spans."""
     lio = LIO(cfg.lio, imu_cap=IMU_CAP, device=device, profiler=prof)
     period = 1.0 / scan_hz
     state = initial_state(lio, traj)
@@ -190,9 +187,9 @@ def sim_lio_stream(cfg, world, traj, n_scans, scan_hz=5.0, prof=None,
     raw_n = 4 * cfg.lio.max_points_per_scan
     T0_inv = np.linalg.inv(traj.pose(0.0))
     for i in range(n_scans):
-        with prof.span("sim"):
+        with span(prof, "sim"):
             inputs = sim_scan_inputs(world, traj, i, period, raw_n)
-        with prof.span("lio"):
+        with span(prof, "lio"):
             state, res = lio.process_scan(state, *inputs)
         yield res.pose, res.cloud_body, res.cloud_mask, inputs[-1], \
             T0_inv @ traj.pose(inputs[-1])
@@ -261,11 +258,12 @@ def run_sim(args):
     cfg.caps = Capacities(max_keyframes=256, max_loop_factors=32,
                           keyframe_points=2048, src_points=2048,
                           dst_points=4096)
-    prof = Profiler()
     obs = RunObservers(args, cfg.vis_hz, cfg.save_voxel_resolution)
     world, traj, cfg = _sim_scene(args.trajectory, cfg)
     device = torch.device(args.device)
-    pipe = FastLioSamQnPipeline(cfg, device=device, mesh=args.mesh)
+    prof = Profiler(device)
+    pipe = FastLioSamQnPipeline(cfg, profiler=prof, device=device,
+                                mesh=args.mesh)
     scan_hz = args.scan_hz or 5.0
     n_scans = args.n_scans or 240
 
@@ -356,9 +354,10 @@ def run_parity(args):
     ``--sync-slop`` are dropped and counted, the pairs stamped with the
     odometry's time."""
     cfg = _get_pipeline_config(args, args.preset)
-    pipe = FastLioSamQnPipeline(cfg, device=torch.device(args.device),
+    prof = Profiler(torch.device(args.device))
+    pipe = FastLioSamQnPipeline(cfg, profiler=prof,
+                                device=torch.device(args.device),
                                 mesh=args.mesh)
-    prof = Profiler()
     scan_paths = sorted(glob.glob(os.path.join(args.scans, "*.bin"))
                         + glob.glob(os.path.join(args.scans, "*.pcd")))
     poses = io.load_poses_kitti(args.poses)
@@ -438,8 +437,9 @@ def run_bag(args):
     that was not fed counted as dropped."""
     cfg = _get_pipeline_config(args, args.preset)
     device = torch.device(args.device)
-    pipe = FastLioSamQnPipeline(cfg, device=device, mesh=args.mesh)
-    prof = Profiler()
+    prof = Profiler(device)
+    pipe = FastLioSamQnPipeline(cfg, profiler=prof, device=device,
+                                mesh=args.mesh)
     obs = RunObservers(args, cfg.vis_hz, cfg.save_voxel_resolution)
     reader = rosbag.BagReader(args.bag)
     scan_topic, imu_topic = args.scan_topic, args.imu_topic
@@ -621,8 +621,9 @@ def run_kitti(args):
     the whole state, ``--resume`` continues a saved run."""
     cfg = _get_pipeline_config(args, args.preset)
     device = torch.device(args.device)
-    pipe = FastLioSamQnPipeline(cfg, device=device, mesh=args.mesh)
-    prof = Profiler()
+    prof = Profiler(device)
+    pipe = FastLioSamQnPipeline(cfg, profiler=prof, device=device,
+                                mesh=args.mesh)
     lio = LIO(cfg.lio, imu_cap=IMU_CAP, device=device)
     obs = RunObservers(args, cfg.vis_hz, cfg.save_voxel_resolution)
 
