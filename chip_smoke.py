@@ -79,6 +79,13 @@ script exits non-zero:
    (``perform_loop_closure``) on the same store: the same decisions, the
    pose within 1 mm / 1e-3 rad; the batched tick and a pose-graph solve
    repeat bit for bit;
+7b. pcg_graphs: the pose-graph solve's PCG as CUDA graphs on the
+   pipeline's capacities (``pgo.PCGBlock``): a 2-step solve at new
+   capacities captures one graph and replays it 16 times, the next
+   captures none; the graphed PCG equals eager ``pgo.pcg`` and ``optimize``
+   (2 and 5 steps) its eager PCG, bit for bit; the solve timed eager and
+   graphed in turns, its host dispatches and device kernels, one block's
+   device time and the one-hot loop products' share of it;
 8. times every kernel and its plain version, and the library yardsticks
    (timed here, never used by the port, fp32 with TF32 off): for the kNN
    kernels ``torch.cdist``, masked, then ``min``; for K3 ``cdist``, the
@@ -1131,6 +1138,162 @@ def lane_vs_single(pipe, tick):
     if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
         raise AssertionError("a repeated pose-graph solve differs")
     log("pgo.optimize (5 GN steps) repeats bit for bit")
+
+
+@contextlib.contextmanager
+def eager_pcg():
+    """``pgo.optimize`` with its PCG run eagerly, as on the CPU: no
+    ``PCGBlock`` (and no CUDA graph) while the context is open."""
+    from fast_lio_sam_qn_tpu_torch.ops import pgo
+
+    block = pgo.pcg_block
+    pgo.pcg_block = lambda *args: None
+    try:
+        yield
+    finally:
+        pgo.pcg_block = block
+
+
+def dispatches(fn) -> int:
+    """The aten operations that one call of ``fn`` dispatches from the
+    host (a CUDA graph's replay dispatches none of its own)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def device_kernels(fn, top=6):
+    """(device ms, kernels, the ``top`` kernels by device ms) of one call of
+    ``fn`` under torch.profiler, a CUDA graph's kernels included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (ms + evt.device_time_total / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return (sum(ms for ms, _ in by_name.values()),
+            sum(n for _, n in by_name.values()),
+            [(name[:60], round(ms, 4), n) for name, (ms, n) in ranked[:top]])
+
+
+def pcg_graphs(dev, card, pipe):
+    """7b: the pose-graph solve's PCG as CUDA graphs (``pgo.PCGBlock``) on
+    the pipeline's capacities (1,024 of 4,096 nodes, the loops of 512):
+    a 2-step solve captures one graph at new capacities and replays it 16
+    times, the next solve captures none; the graphed PCG equals the eager
+    ``pgo.pcg`` bit for bit on one step's linear system (64 and 13
+    iterations) and ``optimize`` its eager self at 2 and 5 Gauss-Newton
+    steps, each repeating bit for bit; then the solve timed eager and
+    graphed in turns, its host dispatches, its device time and kernels,
+    one block's, and the one-hot loop products' share of a PCG
+    iteration."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import pgo
+    from fast_lio_sam_qn_tpu_torch.tools.pgo_graph import build_graph
+    from fast_lio_sam_qn_tpu_torch.tools.roofline import device_ms
+    from fast_lio_sam_qn_tpu_torch.utils import profiling
+
+    cfg = pipe.cfg
+    g, _, n_loops = build_graph(1024, device=dev,
+                                capacity=cfg.caps.max_keyframes,
+                                loop_capacity=cfg.caps.max_loop_factors)
+    var = (pipe._prior_var, pipe._odom_var)
+    kw = dict(robust_delta=cfg.robust_delta)
+    where = (f"1024 of {cfg.caps.max_keyframes} nodes, {n_loops} of "
+             f"{cfg.caps.max_loop_factors} loops")
+
+    pgo._BLOCKS.clear()   # new capacities: the first solve captures
+    prof = profiling.Profiler(dev)
+    counts = []
+    for label in ("first", "second"):
+        with prof.span(label):
+            pgo.optimize(g, *var, gn_iters=2, **kw)
+        rec = next(r for r in prof.records() if r.name == label)
+        counts.append((rec.pcg_graph_captures, rec.pcg_graph_replays,
+                       rec.pcg_iters))
+    log(f"pcg graphs: 2-step solves on {where}: (captures, replays, PCG "
+        f"iterations) {counts}")
+    cuda = dev.type == "cuda"
+    want = [(int(cuda), 16 * cuda, 128), (0, 16 * cuda, 128)]
+    if counts != want:
+        raise AssertionError(f"pcg graph counters {counts}, expected {want}")
+
+    active = (torch.arange(g.capacity, device=dev) < g.num_nodes)[:, None]
+    sc = pgo._Scatter(g)
+    Ji, Jj, w6, valid, b, Pinv = pgo.linearize(g, sc, *var,
+                                               cfg.robust_delta)
+
+    def hx(v):
+        return pgo._hx(sc, Ji, Jj, w6, valid, v) * active
+    block = pgo.pcg_block(sc, Ji, Jj, w6, valid, active, Pinv)
+    for iters in (64, 13):
+        eager = pgo.pcg(b, Pinv, hx, active, iters)
+        graphed = pgo.pcg(b, Pinv, hx, active, iters, block)
+        if not torch.equal(eager, graphed):
+            raise AssertionError(f"graphed PCG ({iters} iterations) differs "
+                                 f"from pgo.pcg by "
+                                 f"{float((eager - graphed).abs().max())}")
+    log("pcg graphs: the graphed PCG equals pgo.pcg bit for bit (64 and 13 "
+        "iterations)")
+    for gn in (2, 5):
+        a = pgo.optimize(g, *var, gn_iters=gn, **kw)
+        a2 = pgo.optimize(g, *var, gn_iters=gn, **kw)
+        with eager_pcg():
+            e = pgo.optimize(g, *var, gn_iters=gn, **kw)
+        if not torch.equal(a.poses, a2.poses):
+            raise AssertionError(f"a repeated {gn}-step solve differs")
+        if not torch.equal(a.poses, e.poses):
+            raise AssertionError(f"the graphed {gn}-step solve differs from "
+                                 f"the eager one")
+    log("pcg graphs: optimize (2 and 5 GN steps) equals its eager PCG and "
+        "repeats, bit for bit")
+
+    for gn in (2, 5):
+        def solve():
+            pgo.optimize(g, *var, gn_iters=gn, **kw)
+
+        def eager_solve():
+            with eager_pcg():
+                solve()
+        t = [cuda_ms(f) for f in (eager_solve, solve, solve, eager_solve)]
+        log(f"time pgo.optimize {gn} GN steps, {where}, eager / graphed / "
+            f"graphed / eager: {t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / "
+            f"{t[3]:.3f} ms [{card}]")
+        log(f"  host dispatches a {gn}-step solve: eager "
+            f"{dispatches(eager_solve)}, graphed {dispatches(solve)}")
+        for label, fn in (("eager", eager_solve), ("graphed", solve)):
+            ms, n, top = device_kernels(fn)
+            log(f"  device work of a {gn}-step solve, {label}: {ms:.3f} ms "
+                f"in {n} kernels; top {top} [{card}]")
+    ms, n, top = device_kernels(block.graph.replay if cuda else block._run)
+    per_block = cuda_ms(block.graph.replay if cuda else block._run, 20)
+    x6 = torch.randn(sc.Si.shape[1], 6, device=dev)
+    onehot = device_ms(lambda: (sc.Si @ x6, sc.Sj @ x6)) if cuda else 0.0
+    it_ms = per_block / pgo.PCG_CHECK
+    log(f"pcg graphs: one block of {pgo.PCG_CHECK} iterations: "
+        f"{per_block:.4f} ms by CUDA events ({it_ms:.4f} ms an iteration), "
+        f"{ms:.4f} ms in {n} kernels profiled; top {top}; the two one-hot "
+        f"loop products ({sc.Si.shape[0]} x {sc.Si.shape[1]} @ "
+        f"{sc.Si.shape[1]} x 6) {onehot:.4f} ms, "
+        f"{100 * onehot / max(it_ms, 1e-9):.1f} % of an iteration [{card}]")
+    torch.cuda.synchronize()
 
 
 def time_pairs(timed, card, plain_reps=10):
@@ -3155,6 +3318,7 @@ def main() -> int:
                              f"launched: {pipe_launches}")
     multi = check_pipeline(pipe, gt_kf, ate_odom, ticks)
     lane_vs_single(pipe, multi[-1])
+    pcg_graphs(dev, card, pipe)
 
     p, m, _, srt = inputs["src"]
     sp, sm_, sn, sv = (x[0] for x in srt[:4])

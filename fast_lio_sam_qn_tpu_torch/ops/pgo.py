@@ -25,11 +25,19 @@ What differs in mechanism, not in result:
   reference's result exactly, and the host reads the live flag only every
   ``PCG_CHECK`` iterations to stop early: at most pcg_iters / PCG_CHECK
   reads per Gauss-Newton step instead of one per iteration.
+- **PCG as CUDA graphs.**  On the card ``optimize`` replays the
+  ``PCG_CHECK`` iterations between two reads as one captured CUDA graph
+  (``PCGBlock``, one a graph capacity), which launches the same kernels
+  on static copies of the step's linear system: the same bits, without
+  the host issuing each iteration's ~100 operations.  The linearization,
+  the block inverse and the retraction stay eager, and so does the
+  factor-sharded solve, whose H x runs a collective.
 - ``add_*`` and ``grow`` return new tensors, as the reference's do; only
   the pipeline holds a graph.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -209,6 +217,8 @@ class _Scatter:
     row 0 is never valid) and f; loop row l hits loop_i[l] and loop_j[l];
     the prior row hits node 0 on its j side."""
 
+    TENSORS = ("Si", "Sj", "li", "lj")
+
     def __init__(self, graph: GraphState):
         n_cap = graph.capacity
         dt = graph.poses.dtype
@@ -307,7 +317,9 @@ def gn_retract(g: GraphState, x: torch.Tensor, active) -> GraphState:
 def optimize(graph: GraphState, prior_var, odom_var, gn_iters: int = 3,
              pcg_iters: int = 64, robust_delta: float = 1.0) -> GraphState:
     """Batch Gauss-Newton over all factors, relinearized every iteration,
-    each step solved by block-Jacobi PCG warm-started at zero.
+    each step solved by block-Jacobi PCG warm-started at zero.  On a CUDA
+    device the PCG runs its iterations as replays of a captured
+    ``PCGBlock`` (the same arithmetic, bit for bit).
 
     prior_var / odom_var: (6,) variances (reference diag(1e-4 x3,
     1e-2 x3)).  robust_delta: Huber threshold on the loop rows' whitened
@@ -316,65 +328,190 @@ def optimize(graph: GraphState, prior_var, odom_var, gn_iters: int = 3,
     prior_var = torch.as_tensor(prior_var, dtype=graph.poses.dtype,
                                 device=dev)
     odom_var = torch.as_tensor(odom_var, dtype=graph.poses.dtype, device=dev)
-    n_cap = graph.capacity
-    l_cap = graph.loop_i.shape[0]
-    active = (torch.arange(n_cap, device=dev) < graph.num_nodes)[:, None]
+    active = (torch.arange(graph.capacity, device=dev)
+              < graph.num_nodes)[:, None]
     scatter = _Scatter(graph)
-    eye6 = torch.eye(6, dtype=graph.poses.dtype, device=dev)
     g = graph
     for _ in range(gn_iters):
-        r, Ji, Jj, w6, valid = _factor_data(g, prior_var, odom_var)
-        if robust_delta > 0:
-            w6 = huber_loop_weights(r, w6, n_cap, l_cap, robust_delta)
-        wr = r * w6 * valid[:, None]
-        b = scatter(torch.einsum("fba,fb->fa", Ji, wr),
-                    torch.einsum("fba,fb->fa", Jj, wr))
-        wv = (w6 * valid[:, None])[:, :, None]
-        P = scatter(torch.einsum("fba,fbc->fac", Ji, Ji * wv),
-                    torch.einsum("fba,fbc->fac", Jj, Jj * wv))
-        with profiling.sync("pgo_inv"):   # inv reads its error flags
-            Pinv = torch.linalg.inv(P + 1e-6 * eye6)
+        Ji, Jj, w6, valid, b, Pinv = linearize(g, scatter, prior_var,
+                                               odom_var, robust_delta)
+        block = None
+        if dev.type == "cuda" and pcg_iters >= PCG_CHECK:
+            block = pcg_block(scatter, Ji, Jj, w6, valid, active, Pinv)
         x = pcg(b, Pinv, lambda v: _hx(scatter, Ji, Jj, w6, valid, v) * active,
-                active, pcg_iters)
+                active, pcg_iters, block)
         g = gn_retract(g, x, active)
     return g
 
 
-def pcg(b, Pinv, hx, active, pcg_iters: int) -> torch.Tensor:
+def linearize(g: GraphState, scatter: _Scatter, prior_var, odom_var,
+              robust_delta: float):
+    """One Gauss-Newton step's linear system at g's estimate, as
+    ``optimize`` solves it: (Ji, Jj, w6, valid) of ``_factor_data`` (w6
+    Huber-weighted on the loop rows where robust_delta > 0), the gradient
+    b (N, 6) and the inverted block-Jacobi blocks Pinv (N, 6, 6)."""
+    n_cap, l_cap = g.capacity, g.loop_i.shape[0]
+    r, Ji, Jj, w6, valid = _factor_data(g, prior_var, odom_var)
+    if robust_delta > 0:
+        w6 = huber_loop_weights(r, w6, n_cap, l_cap, robust_delta)
+    wr = r * w6 * valid[:, None]
+    b = scatter(torch.einsum("fba,fb->fa", Ji, wr),
+                torch.einsum("fba,fb->fa", Jj, wr))
+    wv = (w6 * valid[:, None])[:, :, None]
+    P = scatter(torch.einsum("fba,fbc->fac", Ji, Ji * wv),
+                torch.einsum("fba,fbc->fac", Jj, Jj * wv))
+    eye6 = torch.eye(6, dtype=P.dtype, device=P.device)
+    with profiling.sync("pgo_inv"):   # inv reads its error flags
+        Pinv = torch.linalg.inv(P + 1e-6 * eye6)
+    return Ji, Jj, w6, valid, b, Pinv
+
+
+def pcg_start(b, Pinv, active):
+    """PCG's state at x = 0 for H x = -b: the carry (x, r, p, r.z, live)
+    and the stopping threshold 1e-10 max(r0.r0, 1e-20)."""
+    x = torch.zeros_like(b)
+    rr = -b * active
+    z = torch.einsum("nab,nb->na", Pinv, rr) * active
+    rz = torch.sum(rr * z)
+    thr = 1e-10 * torch.clamp(torch.sum(rr * rr), min=1e-20)
+    live = torch.sum(rr * rr) > thr
+    return (x, rr, z, rz, live), thr
+
+
+def pcg_step(carry, thr, Pinv, hx, active):
+    """One PCG iteration: the next carry (x, r, p, r.z, live).  Once
+    ``live`` is false the carry stays as it is (the reference's
+    ``while_loop`` stopping there)."""
+    x, rr, p, rz, live = carry
+    hp = hx(p)
+    alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
+    rr_n = rr - alpha * hp
+    z_n = torch.einsum("nab,nb->na", Pinv, rr_n) * active
+    rz_n = torch.sum(rr_n * z_n)
+    p_n = z_n + rz_n / torch.clamp(rz, min=1e-20) * p
+    x = torch.where(live, x + alpha * p, x)
+    rr = torch.where(live, rr_n, rr)
+    p = torch.where(live, p_n, p)
+    rz = torch.where(live, rz_n, rz)
+    live = live & (torch.sum(rr * rr) > thr)
+    return x, rr, p, rz, live
+
+
+def pcg(b, Pinv, hx, active, pcg_iters: int, block=None) -> torch.Tensor:
     """Block-Jacobi preconditioned CG for H x = -b from x = 0 (N, 6),
     shared by ``optimize`` and the factor-sharded solve: ``Pinv`` (N, 6, 6)
     the inverted diagonal blocks, ``hx(v)`` H v on the active rows.  Stops
     once sum(r*r) <= 1e-10 max(r0.r0, 1e-20) or after ``pcg_iters``; the
     host reads the live flag every ``PCG_CHECK`` iterations (the span
     ``sync.pcg``), and the iterations run go to the open profiler's
-    ``pcg_iters``."""
-    def precond(v):
-        return torch.einsum("nab,nb->na", Pinv, v) * active
+    ``pcg_iters``.
 
-    x = torch.zeros_like(b)
-    rr = -b * active
-    z = precond(rr)
-    p = z
-    rz = torch.sum(rr * z)
-    thr = 1e-10 * torch.clamp(torch.sum(rr * rr), min=1e-20)
-    live = torch.sum(rr * rr) > thr
+    ``block``, a ``PCGBlock`` loaded with this system, runs each whole
+    ``PCG_CHECK`` iterations between two reads; the rest run here."""
+    carry, thr = pcg_start(b, Pinv, active)
     n = 0
-    for n in range(1, pcg_iters + 1):
-        hp = hx(p)
-        alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
-        rr_n = rr - alpha * hp
-        z_n = precond(rr_n)
-        rz_n = torch.sum(rr_n * z_n)
-        p_n = z_n + rz_n / torch.clamp(rz, min=1e-20) * p
-        x = torch.where(live, x + alpha * p, x)
-        rr = torch.where(live, rr_n, rr)
-        p = torch.where(live, p_n, p)
-        rz = torch.where(live, rz_n, rz)
-        live = live & (torch.sum(rr * rr) > thr)
+    while n < pcg_iters:
+        if block is not None and n + PCG_CHECK <= pcg_iters:
+            carry = block(carry, thr)
+            n += PCG_CHECK
+        else:
+            carry = pcg_step(carry, thr, Pinv, hx, active)
+            n += 1
         if n % PCG_CHECK == 0:
             with profiling.sync("pcg"):
-                done = not bool(live)
+                done = not bool(carry[4])
             if done:
                 break
     profiling.add("pcg_iters", n)
-    return x
+    return carry[0].clone() if block is not None else carry[0]
+
+
+class PCGBlock:
+    """``PCG_CHECK`` iterations of ``pcg_step`` on ``optimize``'s system
+    (``_hx`` with the factor rows and ``_Scatter``), reading and writing
+    static buffers of one graph's capacities.  On a CUDA device the
+    iterations are captured once as a CUDA graph and each call replays it,
+    which spares the host launching every iteration's operations;
+    elsewhere a call runs them eagerly.  ``load`` copies a linear system
+    into the buffers; a call copies the carry in unless it is the block's
+    own, and returns the block's carry."""
+
+    def __init__(self, scatter: _Scatter, Ji, Jj, w6, valid, active, Pinv):
+        self.scatter = copy.copy(scatter)
+        for k in _Scatter.TENSORS:
+            setattr(self.scatter, k, torch.empty_like(getattr(scatter, k)))
+        self.system = [torch.empty_like(t)
+                       for t in (Ji, Jj, w6, valid, active, Pinv)]
+        x = torch.zeros_like(Pinv[:, :, 0])
+        zero = torch.zeros_like(x[0, 0])
+        self.thr = zero.clone()
+        # a carry that is not live: the warm-up run leaves it as it is
+        self.carry = (x, x.clone(), x.clone(), zero.clone(),
+                      torch.zeros_like(zero, dtype=torch.bool))
+        self.graph = None
+        self.load(scatter, Ji, Jj, w6, valid, active, Pinv)
+        if x.device.type == "cuda":
+            self._capture()
+
+    def load(self, scatter: _Scatter, Ji, Jj, w6, valid, active, Pinv):
+        for k in _Scatter.TENSORS:
+            getattr(self.scatter, k).copy_(getattr(scatter, k))
+        for dst, src in zip(self.system, (Ji, Jj, w6, valid, active, Pinv)):
+            dst.copy_(src)
+
+    def _run(self):
+        Ji, Jj, w6, valid, active, Pinv = self.system
+
+        def hx(v):
+            return _hx(self.scatter, Ji, Jj, w6, valid, v) * active
+        carry = self.carry
+        for _ in range(PCG_CHECK):
+            carry = pcg_step(carry, self.thr, Pinv, hx, active)
+        for dst, src in zip(self.carry, carry):
+            dst.copy_(src)
+
+    def _capture(self):
+        dev = self.thr.device
+        with torch.cuda.device(dev):
+            # warm up on a side stream first, as torch.cuda.graphs asks
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self._run()
+        profiling.add("pcg_graph_captures", 1)
+
+    def __call__(self, carry, thr):
+        if carry is not self.carry:
+            for dst, src in zip(self.carry, carry):
+                dst.copy_(src)
+            self.thr.copy_(thr)
+        if self.graph is None:
+            self._run()
+        else:
+            self.graph.replay()
+            profiling.add("pcg_graph_replays", 1)
+        return self.carry
+
+
+# captured blocks by (node capacity, loop capacity, dtype, device): a
+# graph's capacities change only on ``grow``, which amortizes, so a
+# process holds a few
+_BLOCKS: dict = {}
+
+
+def pcg_block(scatter: _Scatter, Ji, Jj, w6, valid, active,
+              Pinv) -> PCGBlock:
+    """The ``PCGBlock`` of this system's capacities, dtype and device
+    (captured on first use), loaded with it."""
+    key = (scatter.n_cap, scatter.li.shape[0], Pinv.dtype, Pinv.device)
+    block = _BLOCKS.get(key)
+    if block is None:
+        block = _BLOCKS[key] = PCGBlock(scatter, Ji, Jj, w6, valid, active,
+                                        Pinv)
+    else:
+        block.load(scatter, Ji, Jj, w6, valid, active, Pinv)
+    return block

@@ -16,7 +16,9 @@ those of its children:
   ``sync.<site>`` (host clock only, no events), opened by ``sync(site)``;
   closing it adds 1 and its wait to every open ancestor;
 - ``pcg_iters``: the PCG iterations the pose-graph solves inside it ran
-  (``add``).
+  (``add``);
+- ``pcg_graph_captures``, ``pcg_graph_replays``: the CUDA graphs of PCG
+  iterations (``pgo.PCGBlock``) captured and replayed inside it.
 
 The op-level sites (``sync``, ``add``) have no profiler handle: they reach
 the profiler whose span is open through one module-level slot that
@@ -42,6 +44,8 @@ _NULL = contextlib.nullcontext()
 _clock = time.perf_counter_ns
 SYNC = "sync."          # the prefix of a host read's span
 ANCHOR = "profiling.anchor"
+COUNTERS = ("syncs", "sync_wait_ms", "pcg_iters", "pcg_graph_captures",
+            "pcg_graph_replays")
 
 
 @dataclass
@@ -71,6 +75,8 @@ class Record:
     syncs: int = 0
     sync_wait_ms: float = 0.0
     pcg_iters: int = 0
+    pcg_graph_captures: int = 0
+    pcg_graph_replays: int = 0
 
     @property
     def host_ms(self) -> float:
@@ -219,7 +225,7 @@ class Profiler:
                 continue
             if r.device_ms is not None:
                 dev[r.name].append(r.device_ms)
-            for k in ("syncs", "sync_wait_ms", "pcg_iters"):
+            for k in COUNTERS:
                 totals[r.name][k] += getattr(r, k)
         for n, ms in dev.items():
             out[n]["device_avg_ms"] = round(sum(ms) / len(ms), 3)

@@ -7,7 +7,12 @@ Gauss-Newton steps.  Also the port's own ``build_graph``
 conversions.
 
 Tolerance for a solve: 1e-4 m / 1e-4 rad per pose (both solve the same
-normal equations in fp32; the sums run in another order)."""
+normal equations in fp32; the sums run in another order).
+
+The PCG's blocks (``pgo.PCGBlock``, captured as CUDA graphs on the card)
+run here eagerly on their static buffers, block by block as the graph
+replays them: equal to the eager ``pgo.pcg`` bit for bit, with the same
+iteration count and host reads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ from fast_lio_sam_qn_tpu.tools.profile_pgo import build_graph
 from fast_lio_sam_qn_tpu_torch import convert
 from fast_lio_sam_qn_tpu_torch.ops import pgo, se3
 from fast_lio_sam_qn_tpu_torch.tools import pgo_graph
+from fast_lio_sam_qn_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -166,3 +172,73 @@ def test_numpy_round_trips():
     for name, w, g in zip(js._fields, js, ts):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
     assert ts.intensities.abs().sum() > 0
+
+
+def _linear_system(g, robust_delta=1.0):
+    """``optimize``'s first Gauss-Newton step on graph g: (scatter, Ji, Jj,
+    w6, valid, active, Pinv, b, hx)."""
+    var = torch.tensor(VAR)
+    active = (torch.arange(g.capacity) < g.num_nodes)[:, None]
+    sc = pgo._Scatter(g)
+    Ji, Jj, w6, valid, b, Pinv = pgo.linearize(g, sc, var, var, robust_delta)
+
+    def hx(v):
+        return pgo._hx(sc, Ji, Jj, w6, valid, v) * active
+    return sc, Ji, Jj, w6, valid, active, Pinv, b, hx
+
+
+def _traced_pcg(b, Pinv, hx, active, iters, block=None):
+    """pgo.pcg under a span: (x, its record, the number of sync.pcg)."""
+    p = profiling.Profiler()
+    with p.span("opt"):
+        x = pgo.pcg(b, Pinv, hx, active, iters, block)
+    recs = p.records()
+    return x, recs[0], sum(r.name == "sync.pcg" for r in recs)
+
+
+@pytest.mark.parametrize("iters", [64, 13, 5, 0])
+@pytest.mark.parametrize("nodes", [128, 6])
+def test_pcg_blocks_equal_eager_pcg(graphs, nodes, iters):
+    """The 128-node circle runs every iteration; its first 6 nodes alone
+    (no loops) converge after 24, so a read stops the PCG early."""
+    _, tg, _ = graphs
+    g = tg._replace(num_nodes=torch.tensor(nodes, dtype=torch.int32),
+                    num_loops=tg.num_loops * int(nodes == 128))
+    sc, Ji, Jj, w6, valid, active, Pinv, b, hx = _linear_system(g)
+    want, rec_e, reads_e = _traced_pcg(b, Pinv, hx, active, iters)
+    block = pgo.PCGBlock(sc, Ji, Jj, w6, valid, active, Pinv)
+    assert block.graph is None        # no CUDA graph on the CPU
+    got, rec_b, reads_b = _traced_pcg(b, Pinv, hx, active, iters, block)
+    assert torch.equal(got, want)
+    assert got.data_ptr() != block.carry[0].data_ptr()
+    assert rec_b.pcg_iters == rec_e.pcg_iters
+    assert reads_b == reads_e == rec_e.pcg_iters // pgo.PCG_CHECK
+    assert rec_b.pcg_graph_captures == rec_b.pcg_graph_replays == 0
+    stops = {128: iters, 6: min(iters, 24)}[nodes]
+    assert rec_e.pcg_iters == stops
+    # a block reloaded with the system, as a later Gauss-Newton step reloads
+    # it, gives the same bits again
+    block.load(sc, Ji, Jj, w6, valid, active, Pinv)
+    again, _, _ = _traced_pcg(b, Pinv, hx, active, iters, block)
+    assert torch.equal(again, want)
+
+
+def test_pcg_block_cache_by_capacity(graphs, monkeypatch):
+    """``pcg_block`` keeps one block a set of capacities (loaded with the
+    system at hand) and makes another for a grown graph; ``optimize`` on
+    the CPU makes none."""
+    monkeypatch.setattr(pgo, "_BLOCKS", {})
+    _, tg, _ = graphs
+    pgo.optimize(tg, VAR, VAR, gn_iters=1)
+    assert pgo._BLOCKS == {}
+    first = _linear_system(tg)[:7]
+    a = pgo.pcg_block(*first)
+    moved = tg._replace(poses=pgo.optimize(tg, VAR, VAR, gn_iters=1).poses)
+    second = _linear_system(moved)[:7]
+    assert pgo.pcg_block(*second) is a
+    assert torch.equal(a.system[0], second[1])
+    assert torch.equal(a.system[5], second[6])
+    grown = pgo.grow(tg, max_nodes=2 * tg.capacity)
+    b = pgo.pcg_block(*_linear_system(grown)[:7])
+    assert b is not a and len(pgo._BLOCKS) == 2
+    assert b.system[5].shape[0] == 2 * tg.capacity

@@ -1,9 +1,10 @@
 """The port's tracer (``utils/profiling.py``) and the spans the program
 opens with it, on the CPU: records, parents and self time; the host reads'
 ``sync.*`` spans and their counters on every open ancestor; the op-level
-sites with no profiler open; the PCG's iteration count; the LIO's ``scan``
-with its six stages; the pipeline's ``feed`` with its stages and reads; and
-records placed on a ``torch.profiler`` trace through the anchor."""
+sites with no profiler open; the PCG's iteration count and its graphs'
+counters; the LIO's ``scan`` with its six stages; the pipeline's ``feed``
+with its stages and reads; and records placed on a ``torch.profiler``
+trace through the anchor."""
 import dataclasses
 import json
 
@@ -92,6 +93,47 @@ def test_a_read_counts_on_every_open_ancestor(clock):
     assert "pcg_iters" not in s["sync.pull"]
     p.clear()
     assert p.records() == [] and p.summary() == {}
+
+
+@pytest.mark.parametrize("counter", ["pcg_graph_captures",
+                                     "pcg_graph_replays"])
+def test_graph_counters_roll_up_like_pcg_iters(clock, counter):
+    """The PCG graphs' counters (``pgo.PCGBlock``) count on every open
+    ancestor and show in ``summary()``, as ``pcg_iters`` does."""
+    p = profiling.Profiler()
+    with p.span("feed", scan=1):
+        with p.span("opt"):
+            profiling.add(counter, 8)
+            profiling.add("pcg_iters", 64)
+            with profiling.sync("pcg"):
+                clock.t += 100_000
+            profiling.add(counter, 8)
+        with p.span("opt"):
+            profiling.add(counter, 1)
+    rec = _by_name(p.records())
+    assert getattr(rec["feed"][0], counter) == 17
+    assert [getattr(r, counter) for r in rec["opt"]] == [16, 1]
+    assert getattr(rec["sync.pcg"][0], counter) == 0
+    s = p.summary()
+    assert s["feed"][counter] == 17 and s["opt"][counter] == 17
+    assert s["opt"]["pcg_iters"] == 64
+    assert counter not in s["sync.pcg"]
+    assert {"pcg_graph_captures", "pcg_graph_replays"} <= \
+        set(profiling.COUNTERS)
+
+
+def test_a_solve_on_the_cpu_captures_and_replays_no_graph():
+    from fast_lio_sam_qn_tpu_torch.tools.pgo_graph import build_graph
+
+    g, _, _ = build_graph(32, device="cpu")
+    var = (1e-4, 1e-4, 1e-4, 1e-2, 1e-2, 1e-2)
+    p = profiling.Profiler("cpu")
+    with p.span("opt"):
+        pgo.optimize(g, var, var, gn_iters=2, pcg_iters=16)
+    opt = p.records()[0]
+    assert opt.pcg_iters > 0
+    assert opt.pcg_graph_captures == opt.pcg_graph_replays == 0
+    assert "pcg_graph_replays" not in p.summary()["opt"]
 
 
 def test_sites_do_nothing_without_an_open_span():
