@@ -28,6 +28,21 @@ lane.
 
 The reference fuses a tick into one jitted program with ``lax.cond``; here
 the tick reads the candidate index back once and branches in Python.
+
+Each lane registers in a frame anchored at its clouds (``anchor_of``):
+the src and dst clouds and both viewpoints lose one common anchor, the dst
+keyframe's corrected position rounded to whole metres, before the
+features, and the transform found is conjugated back to the world frame
+(``unanchor``).  The float32 arithmetic of the features (the radius
+kernels' d^2 = |q|^2 - 2 q.p + |p|^2 and the raw second moments) and of
+GICP's linearization about the origin cancels hundreds of metres from it;
+in the anchored frame every cloud sits within its sensor's range of the
+origin wherever the drive has gone.  A keyframe within ``ANCHOR_NEAR`` of
+the world origin has the anchor 0, and its registration keeps its bits.
+
+Given a profiler (the pipeline's), a registration opens the spans
+``reg.clouds``, ``reg.fpfh``, ``reg.match``, ``reg.quatro`` and
+``reg.gicp``, and the GICP loop adds its passes to ``gicp_iters``.
 """
 from __future__ import annotations
 
@@ -41,6 +56,10 @@ from ..utils import profiling
 from ..utils.config import LoopClosureConfig
 from .keyframes import KeyframeStore
 
+# a dst keyframe with every coordinate within ANCHOR_NEAR (m) of the world
+# origin (the sim courses, the long run's 52 m) registers at the anchor 0
+ANCHOR_NEAR = 64.0
+
 
 class RegistrationOutput(NamedTuple):
     pose_between: torch.Tensor  # (4, 4) world-frame correction src -> dst
@@ -48,6 +67,31 @@ class RegistrationOutput(NamedTuple):
     is_valid: torch.Tensor      # bool
     is_converged: torch.Tensor  # bool
     closest_idx: torch.Tensor   # int32 (-1 if none)
+
+
+def anchor_of(positions: torch.Tensor) -> torch.Tensor:
+    """The registration frames' origins (B, 3) for lanes whose dst
+    keyframes lie at ``positions`` (B, 3): the position rounded to whole
+    metres, or 0 for a lane within ``ANCHOR_NEAR`` of the world origin.
+    A whole number of metres leaves a float32 coordinate's own bits: a
+    point nearer the anchor than the origin loses it exactly (+0, never
+    -0: x - 0 keeps every x's bits)."""
+    near = (positions.abs() < ANCHOR_NEAR).all(-1, keepdim=True)
+    return torch.where(near, torch.zeros_like(positions),
+                       torch.round(positions)) + 0.0
+
+
+def unanchor(T: torch.Tensor, anchor: torch.Tensor) -> torch.Tensor:
+    """World-frame transforms A T A^-1 of anchored ones ``T`` (B, 4, 4),
+    A the translation by ``anchor`` (B, 3): the rotation as it is, the
+    translation t + a - R a formed in float64 (with a = 0, t bit for
+    bit)."""
+    a = anchor.double()
+    t = T[:, :3, 3].double() + a - torch.einsum(
+        "bij,bj->bi", T[:, :3, :3].double(), a)
+    out = T.clone()
+    out[:, :3, 3] = t.to(T.dtype)
+    return out
 
 
 def fetch_closest_keyframe_idx(store: KeyframeStore, query_pose, query_time,
@@ -121,13 +165,19 @@ class LoopClosure:
     """Config plus the registration steps of one loop-closure attempt."""
 
     def __init__(self, cfg: LoopClosureConfig, src_cap: int = 8192,
-                 dst_cap: int = 16384):
+                 dst_cap: int = 16384, profiler=None):
+        """``profiler``: where the registration's spans go (None: no
+        spans, no cost)."""
         if cfg.quatro.fpfh_backend not in ("stream", "knn"):
             raise ValueError("unknown FPFH backend "
                              f"{cfg.quatro.fpfh_backend!r}")
         self.cfg = cfg
         self.src_cap = src_cap
         self.dst_cap = dst_cap
+        self.profiler = profiler
+
+    def _span(self, name: str):
+        return profiling.span(self.profiler, name)
 
     def fetch_closest_keyframe_idx(self, store, query_pose, query_time):
         return fetch_closest_keyframe_idx(
@@ -214,36 +264,42 @@ class LoopClosure:
                 *a[:2], *radii, a[2], cov_radius=qc.fpfh_cov_radius),
                 p, m, vp)
 
-        ds, fs, *geo_s = features(src, src_mask, src_vp)
-        dd, fd, *geo_d = features(dst, dst_mask, dst_vp)
-        fs = fpfh.distinctive(ds, fs, qc.planarity_threshold)
-        fd = fpfh.distinctive(dd, fd, qc.planarity_threshold)
+        with self._span("reg.fpfh"):
+            ds, fs, *geo_s = features(src, src_mask, src_vp)
+            dd, fd, *geo_d = features(dst, dst_mask, dst_vp)
+            fs = fpfh.distinctive(ds, fs, qc.planarity_threshold)
+            fd = fpfh.distinctive(dd, fd, qc.planarity_threshold)
         match = dict(distance_threshold=qc.distance_threshold,
                      max_corres=self._max_corres(src.shape[1]),
                      optimized_matching=qc.use_optimized_matching)
-        if batched:
-            s, d, ok = quatro.match_features_batched(src, ds, fs, dst, dd, fd,
-                                                     **match)
-        else:
-            s, d, ok = kernels.per_lane(
-                lambda *a: quatro.match_features(*a, **match),
-                src, ds, fs, dst, dd, fd)
-        q = kernels.per_lane(lambda *a: quatro.solve(
-            *a, noise_bound=qc.noise_bound, gnc_factor=qc.rot_gnc_factor,
-            cost_diff_thr=qc.rot_cost_diff_thr, rot_max_iter=qc.rot_max_iter,
-            estimate_scale=qc.estimating_scale), s, d, ok)
-        src_c = se3.transform_points(src, q.transform)
-        # pure rotation for C' = R C R^T (the transform carries s R when
-        # estimating scale)
-        Rq = q.transform[:, :3, :3] / q.scale[:, None, None]
-        src_covs = dst_covs = None
-        if stream:
-            (_, nvs, cs), (_, nvd, cd) = geo_s[0], geo_d[0]
-            src_covs = (torch.einsum("zab,znbc,zdc->znad", Rq, cs, Rq), nvs)
-            dst_covs = (cd, nvd)
-        fine, fine_valid = self.icp_alignment(
-            src_c, src_mask, dst, dst_mask, src_cov=src_covs,
-            dst_cov=dst_covs, batched=batched)
+        with self._span("reg.match"):
+            if batched:
+                s, d, ok = quatro.match_features_batched(
+                    src, ds, fs, dst, dd, fd, **match)
+            else:
+                s, d, ok = kernels.per_lane(
+                    lambda *a: quatro.match_features(*a, **match),
+                    src, ds, fs, dst, dd, fd)
+        with self._span("reg.quatro"):
+            q = kernels.per_lane(lambda *a: quatro.solve(
+                *a, noise_bound=qc.noise_bound, gnc_factor=qc.rot_gnc_factor,
+                cost_diff_thr=qc.rot_cost_diff_thr,
+                rot_max_iter=qc.rot_max_iter,
+                estimate_scale=qc.estimating_scale), s, d, ok)
+        with self._span("reg.gicp"):
+            src_c = se3.transform_points(src, q.transform)
+            # pure rotation for C' = R C R^T (the transform carries s R
+            # when estimating scale)
+            Rq = q.transform[:, :3, :3] / q.scale[:, None, None]
+            src_covs = dst_covs = None
+            if stream:
+                (_, nvs, cs), (_, nvd, cd) = geo_s[0], geo_d[0]
+                src_covs = (torch.einsum("zab,znbc,zdc->znad", Rq, cs, Rq),
+                            nvs)
+                dst_covs = (cd, nvd)
+            fine, fine_valid = self.icp_alignment(
+                src_c, src_mask, dst, dst_mask, src_cov=src_covs,
+                dst_cov=dst_covs, batched=batched)
         # the committed measurement is the rigid projection of the coarse
         # transform (a no-op unless estimating scale)
         q_rigid = q.transform.clone()
@@ -257,26 +313,35 @@ class LoopClosure:
     def _register(self, store: KeyframeStore, qs, cs, batched: bool
                   ) -> RegistrationOutput:
         """Register query keyframes ``qs`` against candidates ``cs`` (host
-        int lists) as B lanes; a lane with closest_idx < 0 is computed
+        int lists) as B lanes, each in the frame of its ``anchor_of`` its
+        candidate's position; a lane with closest_idx < 0 is computed
         against keyframe 0 and comes out invalid with closest_idx -1, as in
-        the reference.  Every output has a leading batch axis."""
+        the reference.  Every output has a leading batch axis, the
+        transform in the world frame."""
         c = self.cfg
         safe = [max(ci, 0) for ci in cs]
-        (src, src_mask), (dst, dst_mask) = kernels.per_lane(
-            lambda qi, ci: set_src_and_dst_cloud(
-                store, qi, ci, submap_range=c.num_submap_keyframes,
-                src_cap=self.src_cap, dst_cap=self.dst_cap,
-                voxel_res=c.voxel_res, enable_quatro=c.enable_quatro,
-                enable_submap_matching=c.enable_submap_matching), qs, safe)
+        vp = store.poses_corrected[:, :3, 3]
+        with self._span("reg.clouds"):
+            (src, src_mask), (dst, dst_mask) = kernels.per_lane(
+                lambda qi, ci: set_src_and_dst_cloud(
+                    store, qi, ci, submap_range=c.num_submap_keyframes,
+                    src_cap=self.src_cap, dst_cap=self.dst_cap,
+                    voxel_res=c.voxel_res, enable_quatro=c.enable_quatro,
+                    enable_submap_matching=c.enable_submap_matching),
+                qs, safe)
+            anchor = anchor_of(vp[safe])
+            src = src - anchor[:, None, :]
+            dst = dst - anchor[:, None, :]
         if c.enable_quatro:
-            vp = store.poses_corrected[:, :3, 3]
             T, score, valid, converged, _ = self.coarse_to_fine_alignment(
-                src, src_mask, dst, dst_mask, vp[qs], vp[safe],
-                batched=batched)
+                src, src_mask, dst, dst_mask, vp[qs] - anchor,
+                vp[safe] - anchor, batched=batched)
         else:
-            res, valid = self.icp_alignment(src, src_mask, dst, dst_mask,
-                                            batched=batched)
+            with self._span("reg.gicp"):
+                res, valid = self.icp_alignment(src, src_mask, dst, dst_mask,
+                                                batched=batched)
             T, score, converged = res.transform, res.fitness, res.converged
+        T = unanchor(T, anchor)
         closest = torch.tensor(cs, dtype=torch.int32, device=T.device)
         has = closest >= 0
         return RegistrationOutput(

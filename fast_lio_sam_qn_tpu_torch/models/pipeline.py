@@ -38,7 +38,7 @@ from ..ops import pgo, se3, voxel
 from ..utils import profiling
 from ..utils.config import PipelineConfig
 from . import keyframes as kf
-from .loop_closure import LoopClosure
+from .loop_closure import LoopClosure, anchor_of
 
 
 @dataclass
@@ -85,11 +85,13 @@ class FastLioSamQnPipeline:
                  device: torch.device | str = "cuda", mesh=None):
         """profiler (optional, as ``LIO``'s) gets the span 'feed' around
         each ``feed`` and inside it the reference's stage spans ('loop' per
-        tick, 'real', 'key_add' and 'opt' per scan).  device holds every
+        tick, with the registration's ``reg.*`` inside, 'real', 'key_add'
+        and 'opt' per scan), and the counters ``reg_lanes`` and
+        ``reg_valid`` on 'loop', ``loop_commits`` where a loop factor is
+        added and ``gn_steps`` on 'opt'.  device holds every
         tensor of the pipeline's state; mesh, where given, is this rank's
         ``parallel.mesh.Mesh`` on that device."""
         self.cfg = cfg or PipelineConfig()
-        self.profiler = profiler
         self.device = torch.device(device)
         self.mesh = mesh
         if mesh is not None and mesh.device != self.device:
@@ -98,6 +100,7 @@ class FastLioSamQnPipeline:
         c = self.cfg
         self.loop_closure = LoopClosure(
             c.loop, src_cap=c.caps.src_points, dst_cap=c.caps.dst_points)
+        self.profiler = profiler
         self.store = kf.empty_store(c.caps.max_keyframes,
                                     c.caps.keyframe_points, self.device)
         self.graph = pgo.empty_graph(c.caps.max_keyframes,
@@ -135,6 +138,16 @@ class FastLioSamQnPipeline:
         self.loop_events: List[LoopEvent] = []
         self.loop_idx_pairs: List[Tuple[int, int]] = []
         self.kf_timestamps: List[float] = []
+
+    @property
+    def profiler(self) -> Optional[profiling.Profiler]:
+        return self._profiler
+
+    @profiler.setter
+    def profiler(self, profiler) -> None:
+        """The pipeline's profiler is its registrations' too."""
+        self._profiler = profiler
+        self.loop_closure.profiler = profiler
 
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -225,6 +238,7 @@ class FastLioSamQnPipeline:
     def _optimize_and_refresh(self):
         # reference: isam.update x2, x5 when a loop was added (:156-165)
         gn = 5 if self.loop_added_flag else 2
+        profiling.add("gn_steps", gn)
         n_factors = self.current_kf_idx + len(self.loop_idx_pairs) + 1
         if (self.mesh is not None and self.mesh.size > 1
                 and n_factors >= self.cfg.pgo_shard_min_factors):
@@ -271,25 +285,35 @@ class FastLioSamQnPipeline:
         single-candidate tick; its results come back in one pull."""
         reg, meas = self.loop_closure.fetch_and_perform(self.store,
                                                         query_idx)
-        closest, valid, score, pose_b, meas_np = _pull(
-            reg.closest_idx, reg.is_valid, reg.score, reg.pose_between, meas)
+        closest, valid, score, pose_b, meas_np, at = _pull(
+            reg.closest_idx, reg.is_valid, reg.score, reg.pose_between, meas,
+            anchor_of(self.store.poses_corrected[query_idx, :3, 3][None])[0])
         closest_i = int(closest)
         if closest_i < 0:
             return
         accepted = bool(valid)
+        profiling.add("reg_lanes", 1)
+        profiling.add("reg_valid", int(accepted))
         self.loop_events.append(LoopEvent(
             tick_time, query_idx, closest_i, float(score), accepted))
         if accepted:
             self._consensus_commit(query_idx, closest_i, pose_b, float(score),
-                                   meas=meas_np)
+                                   meas=meas_np, at=at)
 
     def _consensus_commit(self, query_idx, closest_i, pose_between, score,
-                          meas=None):
+                          meas=None, at=None):
         """Commit an accepted loop once its implied correction agrees with
         another recent accepted loop (``consensus_window``; 0 commits at
         once).  The measurement is frozen at registration time: pose_from =
         pose_between . query.corrected, meas = pose_from.between(
-        closest.corrected)."""
+        closest.corrected).
+
+        Two corrections agree where they move a point alike within
+        ``consensus_tol``: the point ``at`` is ``loop_closure.anchor_of``
+        the query's corrected position (the origin when None, and for every
+        keyframe near it, where this is the translations' difference).  Far
+        from the world origin a correction's translation alone carries its
+        rotation times the lever arm to the origin."""
         if meas is None:
             pose_from = se3.compose(self._t(pose_between),
                                     self.store.poses_corrected[query_idx])
@@ -299,14 +323,19 @@ class FastLioSamQnPipeline:
         if w <= 0:
             self._add_loop_factor(query_idx, closest_i, meas, score)
             return
-        corr = np.asarray(pose_between)[:3, 3]
+        T = np.asarray(pose_between)
+        corr, rot = T[:3, 3], T[:3, :3]
+        x = np.zeros(3, T.dtype) if at is None else np.asarray(at, T.dtype)
+
+        def moved(p):
+            return p["rot"] @ x + p["corr"]
         entry = dict(query_idx=query_idx, closest_idx=closest_i, meas=meas,
-                     score=score, corr=corr, committed=False)
+                     score=score, corr=corr, rot=rot, committed=False)
         self._pending_loops = [p for p in self._pending_loops
                                if query_idx - p["query_idx"] <= w]
         tol = self.cfg.loop.consensus_tol
         agree = [p for p in self._pending_loops
-                 if np.linalg.norm(p["corr"] - corr) < tol]
+                 if np.linalg.norm(moved(p) - moved(entry)) < tol]
         if agree:
             for p in agree:
                 if not p["committed"]:
@@ -324,6 +353,7 @@ class FastLioSamQnPipeline:
             self.cfg.caps.max_loop_factors = new_cap
         self.graph = pgo.add_loop_factor(self.graph, query_idx, closest_i,
                                          self._t(meas), score)
+        profiling.add("loop_commits", 1)
         self.loop_idx_pairs.append((query_idx, closest_i))
         self.loop_added_flag = True
 
@@ -359,8 +389,12 @@ class FastLioSamQnPipeline:
             return
         reg = self.loop_closure.perform_loop_closure_batch(
             self.store, qidx.tolist(), closest_np.tolist(), mesh=self.mesh)
-        valid, scores, poses_np = _pull(reg.is_valid, reg.score,
-                                        reg.pose_between)
+        valid, scores, poses_np, at = _pull(
+            reg.is_valid, reg.score, reg.pose_between,
+            anchor_of(self.store.poses_corrected[q, :3, 3]))
+        has = closest_np[:len(pending)] >= 0
+        profiling.add("reg_lanes", int(has.sum()))
+        profiling.add("reg_valid", int(valid[:len(pending)][has].sum()))
         for b in range(len(pending)):
             ci = int(closest_np[b])
             if ci < 0:
@@ -370,7 +404,7 @@ class FastLioSamQnPipeline:
                 tick_time, int(qidx[b]), ci, float(scores[b]), accepted))
             if accepted:
                 self._consensus_commit(int(qidx[b]), ci, poses_np[b],
-                                       float(scores[b]))
+                                       float(scores[b]), at=at[b])
 
     # ------------------------------------------------------------------
     # vis-timer products, pull-style

@@ -12,7 +12,8 @@ host read per iteration.
 The loop is written once, over a leading batch axis of B cloud pairs, as
 ``jax.vmap`` of the reference's ``align`` runs it: a lane that has stopped
 keeps its state bit for bit (vmap of a ``while_loop`` runs while any lane's
-predicate holds and selects the finished lanes' carry).  ``align_batched``
+predicate holds and selects the finished lanes' carry); its passes go to
+the open profiler's ``gicp_iters``.  ``align_batched``
 searches all lanes with one batched K2 launch per iteration; ``align`` is
 the same loop at B = 1 through the single-cloud K2.
 """
@@ -23,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils import profiling
 from . import hashgrid, knn_cuda, linalg3, se3
 
 PLANE_EPS = 1e-3  # plane regularization: eigenvalues replaced by (e, 1, 1)
@@ -167,7 +169,9 @@ def _gicp_iterate(src, src_mask, src_cov, dst, dst_mask, dst_cov, init_T,
                   torch.zeros(b, dtype=torch.int32, device=dev),
                   torch.eye(6, dtype=src.dtype, device=dev).repeat(b, 1, 1))
     active = torch.ones(b, dtype=torch.bool, device=dev)
+    passes = 0
     for _ in range(max_iter):
+        passes += 1
         R = st.T[:, :3, :3]
         y = se3.transform_points(src, st.T)
         d2, idx, nn_ok = nn(y.contiguous(), src_mask, dst, dst_mask)
@@ -186,6 +190,7 @@ def _gicp_iterate(src, src_mask, src_cov, dst, dst_mask, dst_cov, init_T,
         active = active & ~(delta < trans_eps)
         if not bool(active.any()):
             break
+    profiling.add("gicp_iters", passes)
     return st
 
 

@@ -77,7 +77,8 @@ def _host_block(pipeline, extra) -> dict:
         "pending_loops": [
             {"query_idx": p["query_idx"], "closest_idx": p["closest_idx"],
              "meas": _np(p["meas"]).tolist(), "score": float(p["score"]),
-             "corr": _np(p["corr"]).tolist(), "committed": p["committed"]}
+             "corr": _np(p["corr"]).tolist(),
+             "rot": _np(p["rot"]).tolist(), "committed": p["committed"]}
             for p in pipeline._pending_loops],
         "extra": extra or {},
         "schema": SCHEMA,
@@ -141,6 +142,9 @@ def _restore_pipeline(pipeline, z, host):
          "meas": np.asarray(p["meas"], np.float32),
          "score": float(np.float32(p["score"])),
          "corr": np.asarray(p["corr"], np.float32),
+         # files from before the rotation was kept: the identity (the
+         # comparison of the translations alone)
+         "rot": np.asarray(p.get("rot", np.eye(3)), np.float32),
          "committed": p["committed"]}
         for p in host.get("pending_loops", []) if "meas" in p]
     for k in ("last_odom_pose", "odom_delta", "last_corrected_pose",

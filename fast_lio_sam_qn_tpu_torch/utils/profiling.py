@@ -18,7 +18,13 @@ those of its children:
 - ``pcg_iters``: the PCG iterations the pose-graph solves inside it ran
   (``add``);
 - ``pcg_graph_captures``, ``pcg_graph_replays``: the CUDA graphs of PCG
-  iterations (``pgo.PCGBlock``) captured and replayed inside it.
+  iterations (``pgo.PCGBlock``) captured and replayed inside it;
+- the loop closure's: ``reg_lanes`` (registered lanes that have a
+  candidate), ``reg_valid`` (of those, the valid ones), ``loop_commits``
+  (loop factors added to the graph), ``gicp_iters`` (Gauss-Newton passes
+  of the GICP loops, one a pass over all lanes) and ``gn_steps`` (the
+  pose-graph solves' Gauss-Newton steps, 2 or 5 a solve).  Each is known
+  on the host where it is added: none costs a read.
 
 The op-level sites (``sync``, ``add``) have no profiler handle: they reach
 the profiler whose span is open through one module-level slot that
@@ -45,7 +51,8 @@ _clock = time.perf_counter_ns
 SYNC = "sync."          # the prefix of a host read's span
 ANCHOR = "profiling.anchor"
 COUNTERS = ("syncs", "sync_wait_ms", "pcg_iters", "pcg_graph_captures",
-            "pcg_graph_replays")
+            "pcg_graph_replays", "reg_lanes", "reg_valid", "loop_commits",
+            "gicp_iters", "gn_steps")
 
 
 @dataclass
@@ -77,6 +84,11 @@ class Record:
     pcg_iters: int = 0
     pcg_graph_captures: int = 0
     pcg_graph_replays: int = 0
+    reg_lanes: int = 0
+    reg_valid: int = 0
+    loop_commits: int = 0
+    gicp_iters: int = 0
+    gn_steps: int = 0
 
     @property
     def host_ms(self) -> float:
