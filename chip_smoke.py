@@ -134,15 +134,24 @@ script exits non-zero:
 12. lio_golden: the 240-scan sim golden through the port, ``run.
    sim_lio_stream`` (the "sim" preset) replayed into ``FastLioSamQnPipeline``
    with the golden's capacities: 34 keyframes, 4-8 committed pairs, 12 loop
-   events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); K6 and K7
-   launch on every scan after the first; LIO ms per scan and its stage
-   spans (CUDA events), feed ms, peak memory;
+   events, ATE 0.0417 m +- 20 % (tests/test_golden.py:95-112); K7
+   launches on every scan after the first (K6 runs inside the insert's
+   CUDA graph, which no host counter sees: 13 and 13b count it in the
+   device trace); LIO ms per scan and its stage spans (CUDA events), feed
+   ms, peak memory;
 13. lio_kitti: the LIO at ``LioConfig()`` (32,768 points, 2^19 slots,
    0.5 m) on a straight drive, 10 warm and 20 timed scans: every scan
-   after the first matches planes and launches K6 and K7 (counters read
-   around each scan: the kernel table's K6 / K7 launches), the final
+   after the first matches planes and launches K7 (its counter read
+   around each scan: the kernel table's K7 launches), one scan's device
+   trace holds K6 twice (the kernel table's K6 launches), the final
    position error within 2x the CPU run's (``KITTI_CPU_ERR``); ms per
    scan and stage spans, host syncs and kernels per scan, peak memory;
+13b. insert_graph: the surfel insert as one CUDA graph a scan
+   (``surfel_map.InsertGraph``) on 30 scans at ``LioConfig()``, each
+   insert's tables equal to the eager insert's on the same inputs bit for
+   bit, one capture and 30 replays on the tracer's counters; one insert
+   and one LIO scan timed eager and graphed in turns, their host
+   dispatches, the insert's device kernels, K6 twice in them either way;
 14. lio_card_vs_cpu: 5 scans at a small width on the card and on the CPU,
    poses within 1e-4 m / 1e-4 rad; each scan from the CPU's state gives
    the CPU's match count;
@@ -205,7 +214,9 @@ script exits non-zero:
 26. prints the kernel table as one JSON line (time, launches on the main
    path, bound from this run's inputs, library time), the card, then the
    result line.  The LIO launches K6 and K7 (the loops that XLA fuses in
-   its reference) and none of K1-K5; the attempt launches K6 too.  K3, K4
+   its reference) and none of K1-K5; the attempt launches K6 too.  K6's
+   launches are its kernels in one kitti-width LIO scan's device trace
+   (13): on the card the insert's CUDA graph runs it.  K3, K4
    and K5 skip what the radius prune rules out, so their bound counts the
    math of the pairs within the radius only (the all-pairs figure is
    logged beside it).
@@ -1172,8 +1183,9 @@ def dispatches(fn) -> int:
 
 
 def device_kernels(fn, top=6):
-    """(device ms, kernels, the ``top`` kernels by device ms) of one call of
-    ``fn`` under torch.profiler, a CUDA graph's kernels included."""
+    """(device ms, kernels, the ``top`` kernels by device ms, {kernel name:
+    (device ms, kernels)} of all) of one call of ``fn`` under
+    torch.profiler, a CUDA graph's kernels included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1189,7 +1201,8 @@ def device_kernels(fn, top=6):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return (sum(ms for ms, _ in by_name.values()),
             sum(n for _, n in by_name.values()),
-            [(name[:60], round(ms, 4), n) for name, (ms, n) in ranked[:top]])
+            [(name[:60], round(ms, 4), n) for name, (ms, n) in ranked[:top]],
+            by_name)
 
 
 def pcg_graphs(dev, card, pipe):
@@ -1279,10 +1292,11 @@ def pcg_graphs(dev, card, pipe):
         log(f"  host dispatches a {gn}-step solve: eager "
             f"{dispatches(eager_solve)}, graphed {dispatches(solve)}")
         for label, fn in (("eager", eager_solve), ("graphed", solve)):
-            ms, n, top = device_kernels(fn)
+            ms, n, top, _ = device_kernels(fn)
             log(f"  device work of a {gn}-step solve, {label}: {ms:.3f} ms "
                 f"in {n} kernels; top {top} [{card}]")
-    ms, n, top = device_kernels(block.graph.replay if cuda else block._run)
+    ms, n, top, _ = device_kernels(block.graph.replay if cuda else
+                                   block._run)
     per_block = cuda_ms(block.graph.replay if cuda else block._run, 20)
     x6 = torch.randn(sc.Si.shape[1], 6, device=dev)
     onehot = device_ms(lambda: (sc.Si @ x6, sc.Sj @ x6)) if cuda else 0.0
@@ -1511,7 +1525,13 @@ class PhaseMemory:
 # K6 and K7: the LIO step's two loops against their plain versions
 # ---------------------------------------------------------------------------
 
-LIO_KERNELS = ("eigh3", "propagate")
+# K7 runs eagerly on every LIO scan, so its wrapper's host counter sees
+# each launch.  On the card K6 runs inside the insert's CUDA graph, whose
+# replays no wrapper sees: it is counted in the device trace
+# (``k6_per_scan``).
+HOST_COUNTED = ("propagate",)
+# K6's kernel in the device trace (csrc/eigh3.cu)
+EIGH3_KERNEL = "eigh3_kernel"
 # K6's shapes: the refit's two plane fits (own voxels, hood) and the
 # attempt's FPFH solves (one cloud; the batched tick's lanes flattened)
 EIGH3_ROWS = {"refit own": 8192, "refit hood": 4096, "attempt": 5632,
@@ -1647,23 +1667,30 @@ def lio_kernels(dev, card, errs):
 
 
 def lio_launches(counts, label):
-    """Per-scan K6 / K7 launches (one dict a scan): both must launch on
-    every scan after the first.  Returns their totals."""
+    """Per-scan K7 launches on its wrapper's host counter (one dict a
+    scan): it must launch on every scan after the first.  Returns the
+    total."""
     missing = [i for i, c in enumerate(counts)
-               if i and not all(c[k] > 0 for k in LIO_KERNELS)]
-    total = {k: sum(c[k] for c in counts) for k in LIO_KERNELS}
-    log(f"{label}: K6 / K7 launches over {len(counts)} scans {total}, per "
-        f"scan {[tuple(c[k] for k in LIO_KERNELS) for c in counts[:3]]} ...")
+               if i and not all(c[k] > 0 for k in HOST_COUNTED)]
+    total = {k: sum(c[k] for c in counts) for k in HOST_COUNTED}
+    log(f"{label}: K7 launches over {len(counts)} scans {total}, per scan "
+        f"{[c['propagate'] for c in counts[:3]]} ...")
     if missing:
-        raise AssertionError(f"{label}: K6 or K7 did not launch on scans "
+        raise AssertionError(f"{label}: K7 did not launch on scans "
                              f"{missing[:10]}")
     return total
 
 
 def scan_counts(before):
-    """The K6 / K7 launches since ``before`` (a ``launches_now()``)."""
+    """The K7 launches since ``before`` (a ``launches_now()``)."""
     now = launches_now()
-    return {k: now[k] - before[k] for k in LIO_KERNELS}
+    return {k: now[k] - before[k] for k in HOST_COUNTED}
+
+
+def k6_per_scan(by_name):
+    """K6's kernels in one call's device trace (``device_kernels``'s last
+    value), a CUDA graph's included."""
+    return sum(n for name, (_, n) in by_name.items() if EIGH3_KERNEL in name)
 
 
 def golden_config():
@@ -1827,12 +1854,130 @@ def lio_kitti(dev, card):
         lambda: lio.process_scan(state, *inputs))
     log(f"lio_kitti per scan: {syncs} host syncs ({', '.join(sites)}), "
         f"{kernels} kernels on the card, {calls} launch calls")
+    k6 = k6_per_scan(device_kernels(
+        lambda: lio.process_scan(state, *inputs))[3])
+    log(f"lio_kitti: K6 kernels in one scan's device trace (the insert "
+        f"graphed): {k6}")
+    if k6 != 2:
+        raise AssertionError(f"lio_kitti: K6 ran {k6} times in a scan, not "
+                             f"2 (the own and the neighbourhood refit)")
     if not all(m > 0 for m in matches[1:]):
         raise AssertionError(f"lio_kitti: a scan matched no plane {matches}")
     if KITTI_CPU_ERR is not None and not err <= 2 * KITTI_CPU_ERR:
         raise AssertionError(f"lio_kitti: error {err} m beyond 2x the CPU "
                              f"run's {KITTI_CPU_ERR} m")
-    return total
+    return dict(total, eigh3=k6)
+
+
+@contextlib.contextmanager
+def eager_insert():
+    """The LIO with its surfel insert run eagerly, as on the CPU: no
+    ``InsertGraph`` (and no CUDA graph) while the context is open."""
+    from fast_lio_sam_qn_tpu_torch.ops import surfel_map
+
+    graph = surfel_map.insert_graph
+
+    def eager(m, points, **kw):
+        return lambda m, points, mask: surfel_map.insert(m, points, mask,
+                                                         **kw)
+    surfel_map.insert_graph = eager
+    try:
+        yield
+    finally:
+        surfel_map.insert_graph = graph
+
+
+def insert_graph_phase(dev, card):
+    """13b: the surfel insert as one CUDA graph a scan
+    (``surfel_map.InsertGraph``) at ``LioConfig()``: 30 scans of the
+    kitti-width run, each insert also run eagerly on the same inputs, every
+    table equal bit for bit; the tracer counts one capture and 30 replays;
+    then one insert and one LIO scan timed eager and graphed in turns,
+    their host dispatches, and the insert's device kernels either way, K6
+    among them twice."""
+    import torch
+
+    from fast_lio_sam_qn_tpu_torch.ops import surfel_map
+    from fast_lio_sam_qn_tpu_torch.tools import profile_insert as pi
+    from fast_lio_sam_qn_tpu_torch.utils import profiling
+
+    surfel_map._GRAPHS.clear()   # the first scan captures
+    prof = profiling.Profiler(dev)
+    lio, state = pi.kitti_lio(dev, profiler=prof)
+    graphed = surfel_map.InsertGraph.__call__
+    differ, last = [], []
+
+    def checked(self, m, points, mask):
+        out = graphed(self, m, points, mask)
+        want = surfel_map.insert(m, points, mask, **self.kw)
+        differ.append([k for k, x, y in zip(out._fields, out[:4], want[:4])
+                       if not torch.equal(x, y)])
+        last[:] = [self, m, points, mask]
+        return out
+
+    surfel_map.InsertGraph.__call__ = checked
+    try:
+        for s in range(pi.KITTI_SCANS):
+            inputs = pi.kitti_inputs(s)
+            state, res = lio.process_scan(state, *inputs)
+    finally:
+        surfel_map.InsertGraph.__call__ = graphed
+    torch.cuda.synchronize()
+    recs = [r for r in prof.records() if r.name == "insert"]
+    caps = [r.insert_graph_captures for r in recs]
+    reps = [r.insert_graph_replays for r in recs]
+    scans = [r for r in prof.records() if r.name == "scan"]
+    log(f"insert graph: {len(recs)} scans at the kitti width; captures "
+        f"{sum(caps)} (scan {caps.index(1) if 1 in caps else None}), "
+        f"replays {sum(reps)}, on the scans' records "
+        f"{sum(r.insert_graph_captures for r in scans)} / "
+        f"{sum(r.insert_graph_replays for r in scans)}; graphs held "
+        f"{len(surfel_map._GRAPHS)}; tables differing "
+        f"{sum(map(bool, differ))}")
+    n = pi.KITTI_SCANS
+    if caps != [1] + [0] * (n - 1) or reps != [1] * n:
+        raise AssertionError(f"insert graph counters: captures {caps}, "
+                             f"replays {reps}")
+    if any(differ):
+        raise AssertionError(f"insert graph: the tables differ from the "
+                             f"eager insert's: {differ}")
+    log("insert graph: every table (key, mom, plane, nbr) equals the eager "
+        "insert's bit for bit on all 30 scans")
+
+    g, m, pts, mask = last
+
+    def eager():
+        surfel_map.insert(m, pts, mask, **g.kw)
+
+    def replay():
+        g(m, pts, mask)
+    t = [cuda_ms(f) for f in (eager, replay, replay, eager)]
+    log(f"time surfel insert at the kitti width, eager / graphed / graphed "
+        f"/ eager: {' / '.join(f'{x:.3f}' for x in t)} ms [{card}]")
+    log(f"  host dispatches an insert: eager {dispatches(eager)}, graphed "
+        f"{dispatches(replay)}")
+    k6 = {}
+    for label, fn in (("eager", eager), ("graphed", replay)):
+        ms, k, top, by_name = device_kernels(fn, top=4)
+        k6[label] = k6_per_scan(by_name)
+        log(f"  device work of an insert, {label}: {ms:.3f} ms in {k} "
+            f"kernels, K6 {k6[label]}; top {top} [{card}]")
+    if k6 != {"eager": 2, "graphed": 2}:
+        raise AssertionError(f"insert graph: K6 kernels in the device trace "
+                             f"{k6}, not 2 either way")
+    lio.profiler = None
+
+    def scan():
+        lio.process_scan(state, *inputs)
+
+    def eager_scan():
+        with eager_insert():
+            scan()
+    t = [cuda_ms(f) for f in (eager_scan, scan, scan, eager_scan)]
+    log(f"time LIO scan at the kitti width, eager / graphed / graphed / "
+        f"eager insert: {' / '.join(f'{x:.3f}' for x in t)} ms [{card}]")
+    log(f"  host dispatches a scan: eager insert {dispatches(eager_scan)}, "
+        f"graphed {dispatches(scan)}")
 
 
 def voxel_gap(a, b):
@@ -3470,6 +3615,7 @@ def main() -> int:
     lio_golden(dev, card)
     # K6 / K7 launches on the LIO's main path: the kitti-width run
     launches.update(lio_kitti(dev, card))
+    insert_graph_phase(dev, card)
     lio_card_vs_cpu(dev)
     lio_repeat(dev, card)
     lio_point(dev, card)

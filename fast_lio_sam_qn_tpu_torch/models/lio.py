@@ -14,7 +14,9 @@ No host read decides anything inside a scan: the surfel map runs the full
 form of the reference's data-dependent tiers, and the first-scan skip of the
 update reads a scan counter that the state carries on the host
 (``LioState.scans``) beside the device's ``num_scans``.  Inputs given as
-numpy arrays reach the device in one transfer.
+numpy arrays reach the device in one transfer.  On a CUDA device the surfel
+insert is one CUDA graph replayed a scan (``surfel_map.insert_graph``), the
+same bits as the eager insert that the CPU runs.
 """
 from __future__ import annotations
 
@@ -209,11 +211,15 @@ class LIO:
         with self._span("insert"):
             pts_w = ieskf._ptransform(body, nav2.R, nav2.p)
             if surfel:
-                grid = surfel_map.insert(
-                    grid, pts_w, m_p, thickness=_f32(c.plane_threshold),
-                    hood_cap=c.surfel_hood_cap or None,
-                    halo_cap=c.surfel_halo_cap or None,
-                    hood_window=c.surfel_hood_window)
+                kw = dict(thickness=_f32(c.plane_threshold),
+                          hood_cap=c.surfel_hood_cap or None,
+                          halo_cap=c.surfel_halo_cap or None,
+                          hood_window=c.surfel_hood_window)
+                if pts_w.device.type == "cuda":
+                    grid = surfel_map.insert_graph(grid, pts_w, **kw)(
+                        grid, pts_w, m_p)
+                else:
+                    grid = surfel_map.insert(grid, pts_w, m_p, **kw)
             else:
                 grid = hashgrid.insert(grid, pts_w, m_p)
         pose = torch.eye(4, dtype=torch.float32, device=dev)

@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import profiling
+from ..utils import cuda_graph, profiling
 from . import se3
 
 PCG_CHECK = 8  # PCG iterations between host reads of the live flag
@@ -451,7 +451,8 @@ class PCGBlock:
         self.graph = None
         self.load(scatter, Ji, Jj, w6, valid, active, Pinv)
         if x.device.type == "cuda":
-            self._capture()
+            self.graph = cuda_graph.capture(self._run, x.device)
+            profiling.add("pcg_graph_captures", 1)
 
     def load(self, scatter: _Scatter, Ji, Jj, w6, valid, active, Pinv):
         for k in _Scatter.TENSORS:
@@ -469,20 +470,6 @@ class PCGBlock:
             carry = pcg_step(carry, self.thr, Pinv, hx, active)
         for dst, src in zip(self.carry, carry):
             dst.copy_(src)
-
-    def _capture(self):
-        dev = self.thr.device
-        with torch.cuda.device(dev):
-            # warm up on a side stream first, as torch.cuda.graphs asks
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._run()
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self._run()
-        profiling.add("pcg_graph_captures", 1)
 
     def __call__(self, carry, thr):
         if carry is not self.carry:

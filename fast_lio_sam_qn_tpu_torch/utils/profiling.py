@@ -19,6 +19,9 @@ those of its children:
   (``add``);
 - ``pcg_graph_captures``, ``pcg_graph_replays``: the CUDA graphs of PCG
   iterations (``pgo.PCGBlock``) captured and replayed inside it;
+- ``insert_graph_captures``, ``insert_graph_replays``: the CUDA graphs of
+  the surfel insert (``surfel_map.InsertGraph``) captured and replayed
+  inside it;
 - the loop closure's: ``reg_lanes`` (registered lanes that have a
   candidate), ``reg_valid`` (of those, the valid ones), ``loop_commits``
   (loop factors added to the graph), ``gicp_iters`` (Gauss-Newton passes
@@ -51,7 +54,8 @@ _clock = time.perf_counter_ns
 SYNC = "sync."          # the prefix of a host read's span
 ANCHOR = "profiling.anchor"
 COUNTERS = ("syncs", "sync_wait_ms", "pcg_iters", "pcg_graph_captures",
-            "pcg_graph_replays", "reg_lanes", "reg_valid", "loop_commits",
+            "pcg_graph_replays", "insert_graph_captures",
+            "insert_graph_replays", "reg_lanes", "reg_valid", "loop_commits",
             "gicp_iters", "gn_steps")
 
 
@@ -84,6 +88,8 @@ class Record:
     pcg_iters: int = 0
     pcg_graph_captures: int = 0
     pcg_graph_replays: int = 0
+    insert_graph_captures: int = 0
+    insert_graph_replays: int = 0
     reg_lanes: int = 0
     reg_valid: int = 0
     loop_commits: int = 0
