@@ -80,12 +80,13 @@ script exits non-zero:
    pose within 1 mm / 1e-3 rad; the batched tick and a pose-graph solve
    repeat bit for bit;
 7b. pcg_graphs: the pose-graph solve's PCG as CUDA graphs on the
-   pipeline's capacities (``pgo.PCGBlock``): a 2-step solve at new
-   capacities captures one graph and replays it 16 times, the next
-   captures none; the graphed PCG equals eager ``pgo.pcg`` and ``optimize``
-   (2 and 5 steps) its eager PCG, bit for bit; the solve timed eager and
-   graphed in turns, its host dispatches and device kernels, one block's
-   device time and the one-hot loop products' share of it;
+   pipeline's capacities (``pgo._pcg_block`` through the CUDA-graph
+   runner): a 2-step solve at new capacities captures one graph and
+   replays it 16 times, the next captures none; the graphed PCG equals
+   eager ``pgo.pcg`` and ``optimize`` (2 and 5 steps) its eager PCG, bit
+   for bit; the solve timed eager and graphed in turns, its host
+   dispatches and device kernels, one block's device time and the one-hot
+   loop products' share of it;
 8. times every kernel and its plain version, and the library yardsticks
    (timed here, never used by the port, fp32 with TF32 off): for the kNN
    kernels ``torch.cdist``, masked, then ``min``; for K3 ``cdist``, the
@@ -144,10 +145,14 @@ script exits non-zero:
    after the first matches planes and launches K7 (its counter read
    around each scan: the kernel table's K7 launches), one scan's device
    trace holds K6 twice (the kernel table's K6 launches), the final
-   position error within 2x the CPU run's (``KITTI_CPU_ERR``); ms per
-   scan and stage spans, host syncs and kernels per scan, peak memory;
-13b. insert_graph: the surfel insert as one CUDA graph a scan
-   (``surfel_map.InsertGraph``) on 30 scans at ``LioConfig()``, each
+   position error within 2x the CPU run's (``KITTI_CPU_ERR``); one scan
+   fed CUDA tensors and no intensities, as the benchmark feeds it, opens
+   no ``sync.inputs`` and gives the numpy-fed scan's state bit for bit;
+   ms per scan and stage spans, host syncs and kernels per scan, peak
+   memory;
+13b. insert_graph: the surfel insert as one CUDA graph a scan (the
+   runner of ``models/lio.py``, emptied first as in a new process) on 30
+   scans at ``LioConfig()``, each
    insert's tables equal to the eager insert's on the same inputs bit for
    bit, one capture and 30 replays on the tracer's counters; one insert
    and one LIO scan timed eager and graphed in turns, their host
@@ -1152,17 +1157,17 @@ def lane_vs_single(pipe, tick):
 
 
 @contextlib.contextmanager
-def eager_pcg():
-    """``pgo.optimize`` with its PCG run eagerly, as on the CPU: no
-    ``PCGBlock`` (and no CUDA graph) while the context is open."""
-    from fast_lio_sam_qn_tpu_torch.ops import pgo
+def eager_graphs():
+    """Every CUDA-graph runner calls its function eagerly, as on the CPU,
+    while the context is open: the LIO's insert and the PCG's blocks."""
+    from fast_lio_sam_qn_tpu_torch.utils import cuda_graph
 
-    block = pgo.pcg_block
-    pgo.pcg_block = lambda *args: None
+    on_card = cuda_graph._on_card
+    cuda_graph._on_card = lambda tensors: False
     try:
         yield
     finally:
-        pgo.pcg_block = block
+        cuda_graph._on_card = on_card
 
 
 def dispatches(fn) -> int:
@@ -1206,10 +1211,11 @@ def device_kernels(fn, top=6):
 
 
 def pcg_graphs(dev, card, pipe):
-    """7b: the pose-graph solve's PCG as CUDA graphs (``pgo.PCGBlock``) on
-    the pipeline's capacities (1,024 of 4,096 nodes, the loops of 512):
-    a 2-step solve captures one graph at new capacities and replays it 16
-    times, the next solve captures none; the graphed PCG equals the eager
+    """7b: the pose-graph solve's PCG as CUDA graphs (``pgo._pcg_block``
+    through the runner) on the pipeline's capacities (1,024 of 4,096
+    nodes, the loops of 512): a 2-step solve captures one graph at new
+    capacities and replays it 16 times, the next solve captures none; the
+    graphed PCG equals the eager
     ``pgo.pcg`` bit for bit on one step's linear system (64 and 13
     iterations) and ``optimize`` its eager self at 2 and 5 Gauss-Newton
     steps, each repeating bit for bit; then the solve timed eager and
@@ -1232,14 +1238,15 @@ def pcg_graphs(dev, card, pipe):
     where = (f"1024 of {cfg.caps.max_keyframes} nodes, {n_loops} of "
              f"{cfg.caps.max_loop_factors} loops")
 
-    pgo._BLOCKS.clear()   # new capacities: the first solve captures
+    # new capacities: the first solve captures
+    pgo._PCG_GRAPHS.graphs.clear()
     prof = profiling.Profiler(dev)
     counts = []
     for label in ("first", "second"):
         with prof.span(label):
             pgo.optimize(g, *var, gn_iters=2, **kw)
         rec = next(r for r in prof.records() if r.name == label)
-        counts.append((rec.pcg_graph_captures, rec.pcg_graph_replays,
+        counts.append((rec.graph_captures, rec.graph_replays,
                        rec.pcg_iters))
     log(f"pcg graphs: 2-step solves on {where}: (captures, replays, PCG "
         f"iterations) {counts}")
@@ -1249,16 +1256,15 @@ def pcg_graphs(dev, card, pipe):
         raise AssertionError(f"pcg graph counters {counts}, expected {want}")
 
     active = (torch.arange(g.capacity, device=dev) < g.num_nodes)[:, None]
-    sc = pgo._Scatter(g)
-    Ji, Jj, w6, valid, b, Pinv = pgo.linearize(g, sc, *var,
-                                               cfg.robust_delta)
+    system, b, Pinv = pgo.linearize(g, pgo._Scatter.of(g), active, *var,
+                                    cfg.robust_delta)
+    sc = system.scatter
 
-    def hx(v):
-        return pgo._hx(sc, Ji, Jj, w6, valid, v) * active
-    block = pgo.pcg_block(sc, Ji, Jj, w6, valid, active, Pinv)
+    def hx(v):      # a plain function: ``pgo.pcg`` runs it eagerly
+        return system(v)
     for iters in (64, 13):
         eager = pgo.pcg(b, Pinv, hx, active, iters)
-        graphed = pgo.pcg(b, Pinv, hx, active, iters, block)
+        graphed = pgo.pcg(b, Pinv, system, active, iters)
         if not torch.equal(eager, graphed):
             raise AssertionError(f"graphed PCG ({iters} iterations) differs "
                                  f"from pgo.pcg by "
@@ -1268,7 +1274,7 @@ def pcg_graphs(dev, card, pipe):
     for gn in (2, 5):
         a = pgo.optimize(g, *var, gn_iters=gn, **kw)
         a2 = pgo.optimize(g, *var, gn_iters=gn, **kw)
-        with eager_pcg():
+        with eager_graphs():
             e = pgo.optimize(g, *var, gn_iters=gn, **kw)
         if not torch.equal(a.poses, a2.poses):
             raise AssertionError(f"a repeated {gn}-step solve differs")
@@ -1283,7 +1289,7 @@ def pcg_graphs(dev, card, pipe):
             pgo.optimize(g, *var, gn_iters=gn, **kw)
 
         def eager_solve():
-            with eager_pcg():
+            with eager_graphs():
                 solve()
         t = [cuda_ms(f) for f in (eager_solve, solve, solve, eager_solve)]
         log(f"time pgo.optimize {gn} GN steps, {where}, eager / graphed / "
@@ -1295,9 +1301,11 @@ def pcg_graphs(dev, card, pipe):
             ms, n, top, _ = device_kernels(fn)
             log(f"  device work of a {gn}-step solve, {label}: {ms:.3f} ms "
                 f"in {n} kernels; top {top} [{card}]")
-    ms, n, top, _ = device_kernels(block.graph.replay if cuda else
-                                   block._run)
-    per_block = cuda_ms(block.graph.replay if cuda else block._run, 20)
+    block = pgo._PCG_GRAPHS.load(pgo._pcg_block,
+                                 *pgo.pcg_start(b, Pinv, active), Pinv,
+                                 system)
+    ms, n, top, _ = device_kernels(block.graph.replay if cuda else block)
+    per_block = cuda_ms(block.graph.replay if cuda else block, 20)
     x6 = torch.randn(sc.Si.shape[1], 6, device=dev)
     onehot = device_ms(lambda: (sc.Si @ x6, sc.Sj @ x6)) if cuda else 0.0
     it_ms = per_block / pgo.PCG_CHECK
@@ -1828,6 +1836,7 @@ def lio_kitti(dev, card):
     import torch
 
     from fast_lio_sam_qn_tpu_torch.tools import profile_insert as pi
+    from fast_lio_sam_qn_tpu_torch.utils import profiling
 
     spans = EventSpans()
     mem = PhaseMemory(dev)
@@ -1850,6 +1859,24 @@ def lio_kitti(dev, card):
         f"position error {err!r} m (the CPU run's {KITTI_CPU_ERR!r} m), "
         f"{mem}")
     spans.report("lio_kitti (kitti width, 20 timed scans)", card, skip=10)
+    # the benchmark's inputs: CUDA tensors and no intensities
+    on_card = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+               else a for a in inputs]
+    reads, states = [], []
+    for fed in (inputs, on_card):
+        lio.profiler = profiling.Profiler(dev)
+        states.append(torch.utils._pytree.tree_leaves(
+            lio.process_scan(state, *fed)[0]))
+        reads.append(sum(r.name == "sync.inputs"
+                         for r in lio.profiler.records()))
+    lio.profiler = spans
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(*states))
+    log(f"lio_kitti: sync.inputs in a scan fed numpy / CUDA tensors: "
+        f"{reads[0]} / {reads[1]}; the states equal bit for bit: {same}")
+    if reads != [1, 0] or not same:
+        raise AssertionError(f"lio_kitti: tensor inputs: reads {reads}, "
+                             f"states equal {same}")
     syncs, kernels, calls, sites = syncs_and_launches(
         lambda: lio.process_scan(state, *inputs))
     log(f"lio_kitti per scan: {syncs} host syncs ({', '.join(sites)}), "
@@ -1869,27 +1896,9 @@ def lio_kitti(dev, card):
     return dict(total, eigh3=k6)
 
 
-@contextlib.contextmanager
-def eager_insert():
-    """The LIO with its surfel insert run eagerly, as on the CPU: no
-    ``InsertGraph`` (and no CUDA graph) while the context is open."""
-    from fast_lio_sam_qn_tpu_torch.ops import surfel_map
-
-    graph = surfel_map.insert_graph
-
-    def eager(m, points, **kw):
-        return lambda m, points, mask: surfel_map.insert(m, points, mask,
-                                                         **kw)
-    surfel_map.insert_graph = eager
-    try:
-        yield
-    finally:
-        surfel_map.insert_graph = graph
-
-
 def insert_graph_phase(dev, card):
-    """13b: the surfel insert as one CUDA graph a scan
-    (``surfel_map.InsertGraph``) at ``LioConfig()``: 30 scans of the
+    """13b: the surfel insert as one CUDA graph a scan (the runner of
+    ``models/lio.py``, emptied first) at ``LioConfig()``: 30 scans of the
     kitti-width run, each insert also run eagerly on the same inputs, every
     table equal bit for bit; the tracer counts one capture and 30 replays;
     then one insert and one LIO scan timed eager and graphed in turns,
@@ -1897,42 +1906,42 @@ def insert_graph_phase(dev, card):
     among them twice."""
     import torch
 
-    from fast_lio_sam_qn_tpu_torch.ops import surfel_map
+    from fast_lio_sam_qn_tpu_torch.models import lio as lio_mod
     from fast_lio_sam_qn_tpu_torch.tools import profile_insert as pi
     from fast_lio_sam_qn_tpu_torch.utils import profiling
 
-    surfel_map._GRAPHS.clear()   # the first scan captures
     prof = profiling.Profiler(dev)
     lio, state = pi.kitti_lio(dev, profiler=prof)
-    graphed = surfel_map.InsertGraph.__call__
+    runner = lio_mod._INSERT_GRAPHS
+    runner.graphs.clear()    # as in a new process: the first scan captures
     differ, last = [], []
 
-    def checked(self, m, points, mask):
-        out = graphed(self, m, points, mask)
-        want = surfel_map.insert(m, points, mask, **self.kw)
+    def checked(fn, *args, **kw):
+        out = runner(fn, *args, **kw)
+        want = fn(*args, **kw)
         differ.append([k for k, x, y in zip(out._fields, out[:4], want[:4])
                        if not torch.equal(x, y)])
-        last[:] = [self, m, points, mask]
+        last[:] = [fn, args, kw]
         return out
 
-    surfel_map.InsertGraph.__call__ = checked
+    lio_mod._INSERT_GRAPHS = checked
     try:
         for s in range(pi.KITTI_SCANS):
             inputs = pi.kitti_inputs(s)
             state, res = lio.process_scan(state, *inputs)
     finally:
-        surfel_map.InsertGraph.__call__ = graphed
+        lio_mod._INSERT_GRAPHS = runner
     torch.cuda.synchronize()
     recs = [r for r in prof.records() if r.name == "insert"]
-    caps = [r.insert_graph_captures for r in recs]
-    reps = [r.insert_graph_replays for r in recs]
+    caps = [r.graph_captures for r in recs]
+    reps = [r.graph_replays for r in recs]
     scans = [r for r in prof.records() if r.name == "scan"]
     log(f"insert graph: {len(recs)} scans at the kitti width; captures "
         f"{sum(caps)} (scan {caps.index(1) if 1 in caps else None}), "
         f"replays {sum(reps)}, on the scans' records "
-        f"{sum(r.insert_graph_captures for r in scans)} / "
-        f"{sum(r.insert_graph_replays for r in scans)}; graphs held "
-        f"{len(surfel_map._GRAPHS)}; tables differing "
+        f"{sum(r.graph_captures for r in scans)} / "
+        f"{sum(r.graph_replays for r in scans)}; graphs held "
+        f"{len(runner.graphs)}; tables differing "
         f"{sum(map(bool, differ))}")
     n = pi.KITTI_SCANS
     if caps != [1] + [0] * (n - 1) or reps != [1] * n:
@@ -1944,13 +1953,13 @@ def insert_graph_phase(dev, card):
     log("insert graph: every table (key, mom, plane, nbr) equals the eager "
         "insert's bit for bit on all 30 scans")
 
-    g, m, pts, mask = last
+    insert, args, kw = last
 
     def eager():
-        surfel_map.insert(m, pts, mask, **g.kw)
+        insert(*args, **kw)
 
     def replay():
-        g(m, pts, mask)
+        runner(insert, *args, **kw)
     t = [cuda_ms(f) for f in (eager, replay, replay, eager)]
     log(f"time surfel insert at the kitti width, eager / graphed / graphed "
         f"/ eager: {' / '.join(f'{x:.3f}' for x in t)} ms [{card}]")
@@ -1971,7 +1980,7 @@ def insert_graph_phase(dev, card):
         lio.process_scan(state, *inputs)
 
     def eager_scan():
-        with eager_insert():
+        with eager_graphs():
             scan()
     t = [cuda_ms(f) for f in (eager_scan, scan, scan, eager_scan)]
     log(f"time LIO scan at the kitti width, eager / graphed / graphed / "

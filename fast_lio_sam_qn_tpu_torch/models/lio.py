@@ -14,9 +14,10 @@ No host read decides anything inside a scan: the surfel map runs the full
 form of the reference's data-dependent tiers, and the first-scan skip of the
 update reads a scan counter that the state carries on the host
 (``LioState.scans``) beside the device's ``num_scans``.  Inputs given as
-numpy arrays reach the device in one transfer.  On a CUDA device the surfel
-insert is one CUDA graph replayed a scan (``surfel_map.insert_graph``), the
-same bits as the eager insert that the CPU runs.
+numpy arrays reach the device in one transfer, tensors without a trip
+through the host.  The surfel insert runs through the module's
+``utils/cuda_graph.Runner``: on the card one CUDA graph replayed a scan,
+the same bits as the eager insert that the CPU runs.
 """
 from __future__ import annotations
 
@@ -26,10 +27,12 @@ import numpy as np
 import torch
 
 from ..ops import hashgrid, ieskf, se3, surfel_map, voxel
-from ..utils import profiling
+from ..utils import cuda_graph, profiling
 from ..utils.config import LioConfig
 
 _MEAS_VAR = 0.0025     # lidar point-to-plane noise variance (m^2)
+# the surfel insert's graphs, one a map and scan width, shared by every LIO
+_INSERT_GRAPHS = cuda_graph.Runner()
 
 
 def _f32(x: float) -> float:
@@ -137,22 +140,29 @@ class LIO:
 
     # ------------------------------------------------------------------
     def _device_inputs(self, *arrays):
-        """Tensors on the LIO's device; numpy inputs travel in one packed
-        float32 transfer (masks as 0/1)."""
-        if all(isinstance(a, torch.Tensor) for a in arrays):
-            return [a.to(self.device) for a in arrays]
-        host = []
+        """The inputs on the LIO's device, masks bool and the rest float32:
+        tensors one by one, numpy arrays in one packed float32 transfer
+        (masks as 0/1).  The last, the intensities, may be None: zeros of
+        the points' (the first's) kind."""
+        pts = arrays[0]
+        if arrays[-1] is None:
+            arrays = arrays[:-1] + (torch.zeros(len(pts), device=self.device)
+                                    if isinstance(pts, torch.Tensor) else
+                                    np.zeros(len(pts), np.float32),)
+        arrays = [a if isinstance(a, torch.Tensor) else np.asarray(a)
+                  for a in arrays]
+        host = [a for a in arrays if isinstance(a, np.ndarray)]
+        if host:
+            flat = torch.from_numpy(np.concatenate(
+                [a.astype(np.float32).reshape(-1) for a in host]))
+            with profiling.sync("inputs"):
+                flat = flat.to(self.device)
+        out, at = [], 0
         for a in arrays:
             if isinstance(a, torch.Tensor):
-                with profiling.sync("inputs"):
-                    a = a.cpu()
-            host.append(np.asarray(a))
-        flat = torch.from_numpy(np.concatenate(
-            [a.astype(np.float32).reshape(-1) for a in host]))
-        with profiling.sync("inputs"):
-            flat = flat.to(self.device)
-        out, at = [], 0
-        for a in host:
+                out.append(a.to(self.device, torch.bool if a.dtype ==
+                                torch.bool else torch.float32))
+                continue
             x = flat[at:at + a.size].reshape(a.shape)
             out.append(x > 0.5 if a.dtype == np.bool_ else x)
             at += a.size
@@ -161,8 +171,6 @@ class LIO:
     def preprocess(self, pts, rel_t, mask, inten=None):
         """Blind-range cull, decimation and surf downsample to the fixed
         output capacity.  Returns (pts, rel_t, inten, mask)."""
-        if inten is None:
-            inten = np.zeros(len(pts), np.float32)
         pts, rel_t, mask, inten = self._device_inputs(pts, rel_t, mask, inten)
         return _preprocess(pts, rel_t, inten, mask, self.cfg)
 
@@ -180,8 +188,6 @@ class LIO:
     def _scan(self, state, pts_l, rel_t, mask, imu_t, gyro, acc, imu_mask,
               t_start, t_end, inten):
         c = self.cfg
-        if inten is None:
-            inten = np.zeros(len(pts_l), np.float32)
         pts_l, rel_t, mask, imu_t, gyro, acc, imu_mask, inten = \
             self._device_inputs(pts_l, rel_t, mask, imu_t, gyro, acc,
                                 imu_mask, inten)
@@ -211,15 +217,12 @@ class LIO:
         with self._span("insert"):
             pts_w = ieskf._ptransform(body, nav2.R, nav2.p)
             if surfel:
-                kw = dict(thickness=_f32(c.plane_threshold),
-                          hood_cap=c.surfel_hood_cap or None,
-                          halo_cap=c.surfel_halo_cap or None,
-                          hood_window=c.surfel_hood_window)
-                if pts_w.device.type == "cuda":
-                    grid = surfel_map.insert_graph(grid, pts_w, **kw)(
-                        grid, pts_w, m_p)
-                else:
-                    grid = surfel_map.insert(grid, pts_w, m_p, **kw)
+                grid = _INSERT_GRAPHS(
+                    surfel_map.insert, grid, pts_w, m_p,
+                    thickness=_f32(c.plane_threshold),
+                    hood_cap=c.surfel_hood_cap or None,
+                    halo_cap=c.surfel_halo_cap or None,
+                    hood_window=c.surfel_hood_window)
             else:
                 grid = hashgrid.insert(grid, pts_w, m_p)
         pose = torch.eye(4, dtype=torch.float32, device=dev)

@@ -26,18 +26,16 @@ What differs in mechanism, not in result:
   ``PCG_CHECK`` iterations to stop early: at most pcg_iters / PCG_CHECK
   reads per Gauss-Newton step instead of one per iteration.
 - **PCG as CUDA graphs.**  On the card ``optimize`` replays the
-  ``PCG_CHECK`` iterations between two reads as one captured CUDA graph
-  (``PCGBlock``, one a graph capacity), which launches the same kernels
-  on static copies of the step's linear system: the same bits, without
-  the host issuing each iteration's ~100 operations.  The linearization,
-  the block inverse and the retraction stay eager, and so does the
-  factor-sharded solve, whose H x runs a collective.
+  ``PCG_CHECK`` iterations between two reads as one CUDA graph
+  (``_pcg_block``, through ``_PCG_GRAPHS``): the same kernels and bits,
+  without the host issuing each iteration's ~100 operations.  The rest
+  stays eager, and so does the factor-sharded solve (its H x runs a
+  collective).
 - ``add_*`` and ``grow`` return new tensors, as the reference's do; only
   the pipeline holds a graph.
 """
 from __future__ import annotations
 
-import copy
 from typing import NamedTuple
 
 import torch
@@ -46,6 +44,8 @@ from ..utils import cuda_graph, profiling
 from . import se3
 
 PCG_CHECK = 8  # PCG iterations between host reads of the live flag
+# the PCG blocks' graphs, one a graph's capacities (a few: ``grow`` doubles)
+_PCG_GRAPHS = cuda_graph.Runner()
 
 
 class GraphState(NamedTuple):
@@ -211,28 +211,26 @@ def _factor_data(graph: GraphState, prior_var, odom_var):
     return r, Ji, Jj, w6, valid
 
 
-class _Scatter:
+class _Scatter(NamedTuple):
     """Sum per-factor rows into per-node rows, deterministically, for the
     layout of ``_factor_data``: odometry row f hits nodes f-1 (its i side;
     row 0 is never valid) and f; loop row l hits loop_i[l] and loop_j[l];
     the prior row hits node 0 on its j side."""
 
-    TENSORS = ("Si", "Sj", "li", "lj")
+    Si: torch.Tensor       # (n_cap, l_cap) one-hot of the loops' i nodes
+    Sj: torch.Tensor       # (n_cap, l_cap) one-hot of the loops' j nodes
+    li: torch.Tensor       # (l_cap,) int64
+    lj: torch.Tensor       # (l_cap,) int64
 
-    def __init__(self, graph: GraphState):
+    @classmethod
+    def of(cls, graph: GraphState) -> "_Scatter":
         n_cap = graph.capacity
-        dt = graph.poses.dtype
         idx = torch.arange(n_cap, device=graph.poses.device)
-
-        def onehot(loop_idx):
-            li = torch.clamp(loop_idx, 0, n_cap - 1).long()
-            return (idx[:, None] == li[None, :]).to(dt)  # (n_cap, l_cap)
-
-        self.n_cap = n_cap
-        self.Si = onehot(graph.loop_i)
-        self.Sj = onehot(graph.loop_j)
-        self.li = torch.clamp(graph.loop_i, 0, n_cap - 1).long()
-        self.lj = torch.clamp(graph.loop_j, 0, n_cap - 1).long()
+        li = torch.clamp(graph.loop_i, 0, n_cap - 1).long()
+        lj = torch.clamp(graph.loop_j, 0, n_cap - 1).long()
+        dt = graph.poses.dtype
+        return cls((idx[:, None] == li[None, :]).to(dt),
+                   (idx[:, None] == lj[None, :]).to(dt), li, lj)
 
     def gather(self, x: torch.Tensor):
         """Per-factor rows of per-node x: (x at side i, x at side j)."""
@@ -241,7 +239,7 @@ class _Scatter:
         return xi, xj
 
     def __call__(self, ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
-        n = self.n_cap
+        n = self.Si.shape[0]
         out = cj[:n].clone()
         out[:-1] += ci[1:n]
         out[0] += ci[0] + ci[-1] + cj[-1]
@@ -284,14 +282,26 @@ class RowScatter:
         return out.reshape((self.S.shape[0],) + rows.shape[1:])
 
 
-def _hx(scatter: _Scatter, Ji, Jj, w6, valid, x):
-    """H @ x without forming H.  x: (N, 6)."""
-    xi, xj = scatter.gather(x)
-    u = (torch.einsum("fab,fb->fa", Ji, xi)
-         + torch.einsum("fab,fb->fa", Jj, xj))
-    wu = u * w6 * valid[:, None]
-    return scatter(torch.einsum("fba,fb->fa", Ji, wu),
-                   torch.einsum("fba,fb->fa", Jj, wu))
+class _System(NamedTuple):
+    """``optimize``'s H on one Gauss-Newton step, never formed: a call is
+    H v on the active rows, v (N, 6).  ``pcg`` replays whole blocks of
+    iterations on it as CUDA graphs."""
+
+    scatter: _Scatter
+    Ji: torch.Tensor
+    Jj: torch.Tensor
+    w6: torch.Tensor
+    valid: torch.Tensor
+    active: torch.Tensor
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        vi, vj = self.scatter.gather(v)
+        u = (torch.einsum("fab,fb->fa", self.Ji, vi)
+             + torch.einsum("fab,fb->fa", self.Jj, vj))
+        wu = u * self.w6 * self.valid[:, None]
+        return self.scatter(torch.einsum("fba,fb->fa", self.Ji, wu),
+                            torch.einsum("fba,fb->fa", self.Jj, wu)
+                            ) * self.active
 
 
 def huber_loop_weights(r, w6, n_cap: int, l_cap: int, robust_delta: float):
@@ -317,9 +327,9 @@ def gn_retract(g: GraphState, x: torch.Tensor, active) -> GraphState:
 def optimize(graph: GraphState, prior_var, odom_var, gn_iters: int = 3,
              pcg_iters: int = 64, robust_delta: float = 1.0) -> GraphState:
     """Batch Gauss-Newton over all factors, relinearized every iteration,
-    each step solved by block-Jacobi PCG warm-started at zero.  On a CUDA
-    device the PCG runs its iterations as replays of a captured
-    ``PCGBlock`` (the same arithmetic, bit for bit).
+    each step solved by block-Jacobi PCG warm-started at zero, its whole
+    ``PCG_CHECK``-iteration blocks replayed as CUDA graphs on the card
+    (the same arithmetic, bit for bit).
 
     prior_var / odom_var: (6,) variances (reference diag(1e-4 x3,
     1e-2 x3)).  robust_delta: Huber threshold on the loop rows' whitened
@@ -330,26 +340,23 @@ def optimize(graph: GraphState, prior_var, odom_var, gn_iters: int = 3,
     odom_var = torch.as_tensor(odom_var, dtype=graph.poses.dtype, device=dev)
     active = (torch.arange(graph.capacity, device=dev)
               < graph.num_nodes)[:, None]
-    scatter = _Scatter(graph)
+    scatter = _Scatter.of(graph)
     g = graph
     for _ in range(gn_iters):
-        Ji, Jj, w6, valid, b, Pinv = linearize(g, scatter, prior_var,
-                                               odom_var, robust_delta)
-        block = None
-        if dev.type == "cuda" and pcg_iters >= PCG_CHECK:
-            block = pcg_block(scatter, Ji, Jj, w6, valid, active, Pinv)
-        x = pcg(b, Pinv, lambda v: _hx(scatter, Ji, Jj, w6, valid, v) * active,
-                active, pcg_iters, block)
+        system, b, Pinv = linearize(g, scatter, active, prior_var, odom_var,
+                                    robust_delta)
+        x = pcg(b, Pinv, system, active, pcg_iters)
         g = gn_retract(g, x, active)
     return g
 
 
-def linearize(g: GraphState, scatter: _Scatter, prior_var, odom_var,
+def linearize(g: GraphState, scatter: _Scatter, active, prior_var, odom_var,
               robust_delta: float):
     """One Gauss-Newton step's linear system at g's estimate, as
-    ``optimize`` solves it: (Ji, Jj, w6, valid) of ``_factor_data`` (w6
-    Huber-weighted on the loop rows where robust_delta > 0), the gradient
-    b (N, 6) and the inverted block-Jacobi blocks Pinv (N, 6, 6)."""
+    ``optimize`` solves it: H as a ``_System`` of ``_factor_data``'s rows
+    (w6 Huber-weighted on the loop rows where robust_delta > 0), the
+    gradient b (N, 6) and the inverted block-Jacobi blocks Pinv (N, 6,
+    6)."""
     n_cap, l_cap = g.capacity, g.loop_i.shape[0]
     r, Ji, Jj, w6, valid = _factor_data(g, prior_var, odom_var)
     if robust_delta > 0:
@@ -363,7 +370,7 @@ def linearize(g: GraphState, scatter: _Scatter, prior_var, odom_var,
     eye6 = torch.eye(6, dtype=P.dtype, device=P.device)
     with profiling.sync("pgo_inv"):   # inv reads its error flags
         Pinv = torch.linalg.inv(P + 1e-6 * eye6)
-    return Ji, Jj, w6, valid, b, Pinv
+    return _System(scatter, Ji, Jj, w6, valid, active), b, Pinv
 
 
 def pcg_start(b, Pinv, active):
@@ -397,7 +404,7 @@ def pcg_step(carry, thr, Pinv, hx, active):
     return x, rr, p, rz, live
 
 
-def pcg(b, Pinv, hx, active, pcg_iters: int, block=None) -> torch.Tensor:
+def pcg(b, Pinv, hx, active, pcg_iters: int) -> torch.Tensor:
     """Block-Jacobi preconditioned CG for H x = -b from x = 0 (N, 6),
     shared by ``optimize`` and the factor-sharded solve: ``Pinv`` (N, 6, 6)
     the inverted diagonal blocks, ``hx(v)`` H v on the active rows.  Stops
@@ -406,13 +413,18 @@ def pcg(b, Pinv, hx, active, pcg_iters: int, block=None) -> torch.Tensor:
     ``sync.pcg``), and the iterations run go to the open profiler's
     ``pcg_iters``.
 
-    ``block``, a ``PCGBlock`` loaded with this system, runs each whole
-    ``PCG_CHECK`` iterations between two reads; the rest run here."""
+    Where ``hx`` is ``optimize``'s ``_System``, each whole ``PCG_CHECK``
+    iterations between two reads run as one ``_pcg_block`` through the
+    module's runner, loaded with the system once; the rest run here."""
     carry, thr = pcg_start(b, Pinv, active)
+    block = None
+    if isinstance(hx, _System) and pcg_iters >= PCG_CHECK:
+        block = _PCG_GRAPHS.load(_pcg_block, carry, thr, Pinv, hx)
+        carry = block.inputs[0][0]      # what each block writes in place
     n = 0
     while n < pcg_iters:
         if block is not None and n + PCG_CHECK <= pcg_iters:
-            carry = block(carry, thr)
+            block()
             n += PCG_CHECK
         else:
             carry = pcg_step(carry, thr, Pinv, hx, active)
@@ -426,79 +438,11 @@ def pcg(b, Pinv, hx, active, pcg_iters: int, block=None) -> torch.Tensor:
     return carry[0].clone() if block is not None else carry[0]
 
 
-class PCGBlock:
-    """``PCG_CHECK`` iterations of ``pcg_step`` on ``optimize``'s system
-    (``_hx`` with the factor rows and ``_Scatter``), reading and writing
-    static buffers of one graph's capacities.  On a CUDA device the
-    iterations are captured once as a CUDA graph and each call replays it,
-    which spares the host launching every iteration's operations;
-    elsewhere a call runs them eagerly.  ``load`` copies a linear system
-    into the buffers; a call copies the carry in unless it is the block's
-    own, and returns the block's carry."""
-
-    def __init__(self, scatter: _Scatter, Ji, Jj, w6, valid, active, Pinv):
-        self.scatter = copy.copy(scatter)
-        for k in _Scatter.TENSORS:
-            setattr(self.scatter, k, torch.empty_like(getattr(scatter, k)))
-        self.system = [torch.empty_like(t)
-                       for t in (Ji, Jj, w6, valid, active, Pinv)]
-        x = torch.zeros_like(Pinv[:, :, 0])
-        zero = torch.zeros_like(x[0, 0])
-        self.thr = zero.clone()
-        # a carry that is not live: the warm-up run leaves it as it is
-        self.carry = (x, x.clone(), x.clone(), zero.clone(),
-                      torch.zeros_like(zero, dtype=torch.bool))
-        self.graph = None
-        self.load(scatter, Ji, Jj, w6, valid, active, Pinv)
-        if x.device.type == "cuda":
-            self.graph = cuda_graph.capture(self._run, x.device)
-            profiling.add("pcg_graph_captures", 1)
-
-    def load(self, scatter: _Scatter, Ji, Jj, w6, valid, active, Pinv):
-        for k in _Scatter.TENSORS:
-            getattr(self.scatter, k).copy_(getattr(scatter, k))
-        for dst, src in zip(self.system, (Ji, Jj, w6, valid, active, Pinv)):
-            dst.copy_(src)
-
-    def _run(self):
-        Ji, Jj, w6, valid, active, Pinv = self.system
-
-        def hx(v):
-            return _hx(self.scatter, Ji, Jj, w6, valid, v) * active
-        carry = self.carry
-        for _ in range(PCG_CHECK):
-            carry = pcg_step(carry, self.thr, Pinv, hx, active)
-        for dst, src in zip(self.carry, carry):
-            dst.copy_(src)
-
-    def __call__(self, carry, thr):
-        if carry is not self.carry:
-            for dst, src in zip(self.carry, carry):
-                dst.copy_(src)
-            self.thr.copy_(thr)
-        if self.graph is None:
-            self._run()
-        else:
-            self.graph.replay()
-            profiling.add("pcg_graph_replays", 1)
-        return self.carry
-
-
-# captured blocks by (node capacity, loop capacity, dtype, device): a
-# graph's capacities change only on ``grow``, which amortizes, so a
-# process holds a few
-_BLOCKS: dict = {}
-
-
-def pcg_block(scatter: _Scatter, Ji, Jj, w6, valid, active,
-              Pinv) -> PCGBlock:
-    """The ``PCGBlock`` of this system's capacities, dtype and device
-    (captured on first use), loaded with it."""
-    key = (scatter.n_cap, scatter.li.shape[0], Pinv.dtype, Pinv.device)
-    block = _BLOCKS.get(key)
-    if block is None:
-        block = _BLOCKS[key] = PCGBlock(scatter, Ji, Jj, w6, valid, active,
-                                        Pinv)
-    else:
-        block.load(scatter, Ji, Jj, w6, valid, active, Pinv)
-    return block
+def _pcg_block(carry, thr, Pinv, system: _System) -> None:
+    """``PCG_CHECK`` iterations of ``pcg_step`` on ``optimize``'s system,
+    written into ``carry`` in place."""
+    out = carry
+    for _ in range(PCG_CHECK):
+        out = pcg_step(out, thr, Pinv, system, system.active)
+    for dst, src in zip(carry, out):
+        dst.copy_(src)

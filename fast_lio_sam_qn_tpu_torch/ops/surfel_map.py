@@ -31,14 +31,9 @@ How the port keeps the reference's results:
   batches, the compacted halo claim and write, the skips when there is
   nothing to claim, refit or propagate) give the same map as their full
   form, so the port always runs the full form: no host read picks a
-  branch, and an insert never waits on the card.
-- **The insert as a CUDA graph.**  Its shapes are fixed by the map and the
-  scan, so on the card the LIO replays one captured ``insert`` a scan
-  (``InsertGraph``, one a set of shapes and settings): the same kernels in
-  the same order, the same bits, without the host issuing its ~1,000
-  operations.  The map comes in and goes out by copies, so every map an
-  insert returns owns its storage.  Every other caller, and the CPU, runs
-  ``insert`` eagerly.
+  branch, and an insert never waits on the card.  So its shapes alone fix
+  its work, and the LIO replays it as one CUDA graph a scan
+  (``models/lio.py``).
 """
 from __future__ import annotations
 
@@ -46,7 +41,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import cuda_graph, profiling
 from . import linalg3
 from .hashgrid import _INT_MAX, _probe_slots, _scatter_rounds
 from .voxel import voxel_coords
@@ -484,73 +478,6 @@ def insert(m: SurfelMap, points: torch.Tensor, mask: torch.Tensor,
     win = is_best & (rank == best_rank[torch.clamp(bidx, 0, t - 1)])
     return m._replace(plane=_set_rows(
         m.plane, torch.where(win, widx2, t), src_plane6))
-
-
-class InsertGraph:
-    """``insert`` with fixed settings on static buffers of one map and scan
-    shape.  On a CUDA device the first call captures the insert once as a
-    CUDA graph (``cuda_graph.capture``), and every call replays it;
-    elsewhere a call runs it eagerly.  A call copies the map, the points
-    and the mask in and returns a copy of the new map, so a later call
-    never writes a map that an earlier one returned.
-
-    A replay issues no kernel from the host, so the kernel wrappers'
-    host-side ``launches`` counters see an insert's kernels only at the
-    capture; the device trace sees every replay's."""
-
-    def __init__(self, m: SurfelMap, n_points: int, dtype: torch.dtype,
-                 thickness: float, hood_cap: int | None = None,
-                 halo: bool = True, halo_cap: int | None = None,
-                 hood_window: int = 27):
-        self.map = SurfelMap(*(torch.empty_like(t) for t in m[:4]), m.res)
-        dev = m.key.device
-        self.points = torch.empty((n_points, 3), dtype=dtype, device=dev)
-        self.mask = torch.empty(n_points, dtype=torch.bool, device=dev)
-        self.kw = dict(thickness=thickness, hood_cap=hood_cap, halo=halo,
-                       halo_cap=halo_cap, hood_window=hood_window)
-        self.out: SurfelMap | None = None
-        self.graph = None
-
-    def _run(self):
-        self.out = insert(self.map, self.points, self.mask, **self.kw)
-
-    def __call__(self, m: SurfelMap, points: torch.Tensor,
-                 mask: torch.Tensor) -> SurfelMap:
-        for dst, src in zip(self.map[:4], m[:4]):
-            dst.copy_(src)
-        self.points.copy_(points)
-        self.mask.copy_(mask)
-        if self.graph is None and self.points.device.type == "cuda":
-            self.graph = cuda_graph.capture(self._run, self.points.device)
-            profiling.add("insert_graph_captures", 1)
-        if self.graph is None:
-            self._run()
-        else:
-            self.graph.replay()
-            profiling.add("insert_graph_replays", 1)
-        return SurfelMap(*(t.clone() for t in self.out[:4]), self.out.res)
-
-
-# captured inserts by everything a graph bakes in: the LIO inserts one scan
-# shape into one map, so a process holds one a configuration
-_GRAPHS: dict = {}
-
-
-def insert_graph(m: SurfelMap, points: torch.Tensor, thickness: float,
-                 hood_cap: int | None = None, halo: bool = True,
-                 halo_cap: int | None = None,
-                 hood_window: int = 27) -> InsertGraph:
-    """The ``InsertGraph`` of this map's table and resolution, this many
-    points of this dtype on this device, and these settings (captured on
-    its first call)."""
-    key = (m.table_size, points.shape[0], m.res, thickness, hood_cap,
-           halo_cap, hood_window, halo, points.dtype, points.device)
-    g = _GRAPHS.get(key)
-    if g is None:
-        g = _GRAPHS[key] = InsertGraph(m, points.shape[0], points.dtype,
-                                       thickness, hood_cap, halo, halo_cap,
-                                       hood_window)
-    return g
 
 
 def query_planes(m: SurfelMap, points: torch.Tensor, mask: torch.Tensor,

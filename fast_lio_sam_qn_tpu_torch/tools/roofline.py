@@ -43,6 +43,7 @@ import torch
 
 from ..ops import fpfh_stream as fs
 from ..ops import knn_cuda
+from ..utils import cuda_graph
 
 # the H100 SXM's published peaks: fp32 outside
 # the tensor cores, and HBM3
@@ -447,17 +448,13 @@ def insert_budget(say=None):
 def device_ms(fn):
     """Device time per call of ``fn``, a wrapper that launches its work on
     the current stream and reads nothing back: its kernels and the small
-    torch ops it runs, without its host time.  After a warm-up call,
-    ``fn`` is captured once in a CUDA graph and replayed 50 times back to
-    back between two CUDA events; the median of 5 such runs.
-    (torch.profiler is not used: late in a long process it delivers only
-    some of the kernel records, or none.)"""
+    torch ops it runs, without its host time.  ``fn`` is captured once in
+    a CUDA graph (``cuda_graph.capture``, after a warm-up call) and
+    replayed 50 times back to back between two CUDA events; the median of
+    5 such runs.  (torch.profiler is not used: late in a long process it
+    delivers only some of the kernel records, or none.)"""
     reps, rounds = 50, 5
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    graph = cuda_graph.capture(fn, torch.device("cuda"))
     graph.replay()
     torch.cuda.synchronize()
     times = []

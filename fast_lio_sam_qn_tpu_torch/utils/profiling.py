@@ -17,11 +17,10 @@ those of its children:
   closing it adds 1 and its wait to every open ancestor;
 - ``pcg_iters``: the PCG iterations the pose-graph solves inside it ran
   (``add``);
-- ``pcg_graph_captures``, ``pcg_graph_replays``: the CUDA graphs of PCG
-  iterations (``pgo.PCGBlock``) captured and replayed inside it;
-- ``insert_graph_captures``, ``insert_graph_replays``: the CUDA graphs of
-  the surfel insert (``surfel_map.InsertGraph``) captured and replayed
-  inside it;
+- ``graph_captures``, ``graph_replays``: the CUDA graphs captured and
+  replayed inside it (``utils/cuda_graph.py``); the span they count on
+  says which work they replay (``insert`` the surfel insert, ``opt`` the
+  PCG's blocks);
 - the loop closure's: ``reg_lanes`` (registered lanes that have a
   candidate), ``reg_valid`` (of those, the valid ones), ``loop_commits``
   (loop factors added to the graph), ``gicp_iters`` (Gauss-Newton passes
@@ -53,9 +52,8 @@ _NULL = contextlib.nullcontext()
 _clock = time.perf_counter_ns
 SYNC = "sync."          # the prefix of a host read's span
 ANCHOR = "profiling.anchor"
-COUNTERS = ("syncs", "sync_wait_ms", "pcg_iters", "pcg_graph_captures",
-            "pcg_graph_replays", "insert_graph_captures",
-            "insert_graph_replays", "reg_lanes", "reg_valid", "loop_commits",
+COUNTERS = ("syncs", "sync_wait_ms", "pcg_iters", "graph_captures",
+            "graph_replays", "reg_lanes", "reg_valid", "loop_commits",
             "gicp_iters", "gn_steps")
 
 
@@ -86,10 +84,8 @@ class Record:
     syncs: int = 0
     sync_wait_ms: float = 0.0
     pcg_iters: int = 0
-    pcg_graph_captures: int = 0
-    pcg_graph_replays: int = 0
-    insert_graph_captures: int = 0
-    insert_graph_replays: int = 0
+    graph_captures: int = 0
+    graph_replays: int = 0
     reg_lanes: int = 0
     reg_valid: int = 0
     loop_commits: int = 0

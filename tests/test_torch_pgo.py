@@ -9,10 +9,11 @@ conversions.
 Tolerance for a solve: 1e-4 m / 1e-4 rad per pose (both solve the same
 normal equations in fp32; the sums run in another order).
 
-The PCG's blocks (``pgo.PCGBlock``, captured as CUDA graphs on the card)
-run here eagerly on their static buffers, block by block as the graph
-replays them: equal to the eager ``pgo.pcg`` bit for bit, with the same
-iteration count and host reads."""
+The PCG's blocks (``pgo._pcg_block`` through the CUDA-graph runner, one
+replayed graph a block on the card) run here on the runner's buffers with
+CPU tensors taken for the card's (``torch_graph_stub.cpu_as_card``),
+block by block as the graph replays them: equal to the eager ``pgo.pcg``
+bit for bit, with the same iteration count and host reads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +25,12 @@ from fast_lio_sam_qn_tpu.tools.profile_pgo import build_graph
 from fast_lio_sam_qn_tpu_torch import convert
 from fast_lio_sam_qn_tpu_torch.ops import pgo, se3
 from fast_lio_sam_qn_tpu_torch.tools import pgo_graph
-from fast_lio_sam_qn_tpu_torch.utils import profiling
+from fast_lio_sam_qn_tpu_torch.utils import cuda_graph, profiling
+
+import torch_graph_stub
+from torch_graph_stub import cpu_as_card
+
+card_graphs = torch_graph_stub.card_graphs
 
 torch.set_num_threads(1)
 
@@ -84,7 +90,7 @@ def test_factor_data_huber_and_retract_match_jax(graphs):
                                Jj * m[..., None], atol=1e-4)
     np.testing.assert_allclose(gw6.numpy(), w6, rtol=1e-6)
     # the layout's node indices, as _Scatter and gather read them
-    sc = pgo._Scatter(tg)
+    sc = pgo._Scatter.of(tg)
     nodes = torch.arange(tg.capacity, dtype=torch.float32)[:, None]
     xi, xj = sc.gather(nodes)
     np.testing.assert_array_equal(xi[:, 0].numpy(), idx_i)
@@ -179,66 +185,76 @@ def _linear_system(g, robust_delta=1.0):
     w6, valid, active, Pinv, b, hx)."""
     var = torch.tensor(VAR)
     active = (torch.arange(g.capacity) < g.num_nodes)[:, None]
-    sc = pgo._Scatter(g)
-    Ji, Jj, w6, valid, b, Pinv = pgo.linearize(g, sc, var, var, robust_delta)
+    system, b, Pinv = pgo.linearize(g, pgo._Scatter.of(g), active, var, var,
+                                    robust_delta)
+    sc, Ji, Jj, w6, valid, _ = system
 
-    def hx(v):
-        return pgo._hx(sc, Ji, Jj, w6, valid, v) * active
+    def hx(v):      # a plain function: ``pgo.pcg`` runs it eagerly
+        return system(v)
     return sc, Ji, Jj, w6, valid, active, Pinv, b, hx
 
 
-def _traced_pcg(b, Pinv, hx, active, iters, block=None):
+def _traced_pcg(b, Pinv, hx, active, iters):
     """pgo.pcg under a span: (x, its record, the number of sync.pcg)."""
     p = profiling.Profiler()
     with p.span("opt"):
-        x = pgo.pcg(b, Pinv, hx, active, iters, block)
+        x = pgo.pcg(b, Pinv, hx, active, iters)
     recs = p.records()
     return x, recs[0], sum(r.name == "sync.pcg" for r in recs)
 
 
 @pytest.mark.parametrize("iters", [64, 13, 5, 0])
 @pytest.mark.parametrize("nodes", [128, 6])
-def test_pcg_blocks_equal_eager_pcg(graphs, nodes, iters):
+def test_pcg_blocks_equal_eager_pcg(graphs, card_graphs, nodes, iters):
     """The 128-node circle runs every iteration; its first 6 nodes alone
     (no loops) converge after 24, so a read stops the PCG early."""
     _, tg, _ = graphs
     g = tg._replace(num_nodes=torch.tensor(nodes, dtype=torch.int32),
                     num_loops=tg.num_loops * int(nodes == 128))
     sc, Ji, Jj, w6, valid, active, Pinv, b, hx = _linear_system(g)
+    system = pgo._System(sc, Ji, Jj, w6, valid, active)
     want, rec_e, reads_e = _traced_pcg(b, Pinv, hx, active, iters)
-    block = pgo.PCGBlock(sc, Ji, Jj, w6, valid, active, Pinv)
-    assert block.graph is None        # no CUDA graph on the CPU
-    got, rec_b, reads_b = _traced_pcg(b, Pinv, hx, active, iters, block)
+    got, rec_b, reads_b = _traced_pcg(b, Pinv, system, active, iters)
     assert torch.equal(got, want)
-    assert got.data_ptr() != block.carry[0].data_ptr()
+    blocks = list(pgo._PCG_GRAPHS.graphs.values())
+    assert len(blocks) == int(iters >= pgo.PCG_CHECK)
+    assert got.data_ptr() not in {t.data_ptr() for g in blocks
+                                  for t in g.leaves}
     assert rec_b.pcg_iters == rec_e.pcg_iters
     assert reads_b == reads_e == rec_e.pcg_iters // pgo.PCG_CHECK
-    assert rec_b.pcg_graph_captures == rec_b.pcg_graph_replays == 0
+    assert (rec_b.graph_captures, rec_b.graph_replays) == (
+        len(blocks), reads_b if len(blocks) else 0)
     stops = {128: iters, 6: min(iters, 24)}[nodes]
     assert rec_e.pcg_iters == stops
-    # a block reloaded with the system, as a later Gauss-Newton step reloads
-    # it, gives the same bits again
-    block.load(sc, Ji, Jj, w6, valid, active, Pinv)
-    again, _, _ = _traced_pcg(b, Pinv, hx, active, iters, block)
-    assert torch.equal(again, want)
+    # the block loaded with the system again, as a later Gauss-Newton step
+    # loads it, gives the same bits again
+    again, rec_a, _ = _traced_pcg(b, Pinv, system, active, iters)
+    assert torch.equal(again, want) and rec_a.graph_captures == 0
 
 
 def test_pcg_block_cache_by_capacity(graphs, monkeypatch):
-    """``pcg_block`` keeps one block a set of capacities (loaded with the
-    system at hand) and makes another for a grown graph; ``optimize`` on
-    the CPU makes none."""
-    monkeypatch.setattr(pgo, "_BLOCKS", {})
+    """The PCG's runner keeps one block a set of capacities (loaded with
+    the system at hand) and makes another for a grown graph; ``optimize``
+    on the CPU makes none."""
+    monkeypatch.setattr(pgo, "_PCG_GRAPHS", cuda_graph.Runner())
     _, tg, _ = graphs
     pgo.optimize(tg, VAR, VAR, gn_iters=1)
-    assert pgo._BLOCKS == {}
-    first = _linear_system(tg)[:7]
-    a = pgo.pcg_block(*first)
+    assert pgo._PCG_GRAPHS.graphs == {}
+    cpu_as_card(monkeypatch)
+
+    def load(g):
+        sc, Ji, Jj, w6, valid, active, Pinv, b, _ = _linear_system(g)
+        carry, thr = pgo.pcg_start(b, Pinv, active)
+        return pgo._PCG_GRAPHS.load(pgo._pcg_block, carry, thr, Pinv,
+                                    pgo._System(sc, Ji, Jj, w6, valid,
+                                                active))
+    a = load(tg)
     moved = tg._replace(poses=pgo.optimize(tg, VAR, VAR, gn_iters=1).poses)
-    second = _linear_system(moved)[:7]
-    assert pgo.pcg_block(*second) is a
-    assert torch.equal(a.system[0], second[1])
-    assert torch.equal(a.system[5], second[6])
+    second = _linear_system(moved)
+    assert load(moved) is a
+    (carry, thr, Pinv, system), _ = a.inputs
+    assert torch.equal(system.Ji, second[1]) and torch.equal(Pinv, second[6])
     grown = pgo.grow(tg, max_nodes=2 * tg.capacity)
-    b = pgo.pcg_block(*_linear_system(grown)[:7])
-    assert b is not a and len(pgo._BLOCKS) == 2
-    assert b.system[5].shape[0] == 2 * tg.capacity
+    b = load(grown)
+    assert b is not a and len(pgo._PCG_GRAPHS.graphs) == 2
+    assert b.inputs[0][2].shape[0] == 2 * tg.capacity

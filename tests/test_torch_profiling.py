@@ -95,31 +95,36 @@ def test_a_read_counts_on_every_open_ancestor(clock):
     assert p.records() == [] and p.summary() == {}
 
 
-@pytest.mark.parametrize("counter", ["pcg_graph_captures",
-                                     "pcg_graph_replays"])
-def test_graph_counters_roll_up_like_pcg_iters(clock, counter):
-    """The PCG graphs' counters (``pgo.PCGBlock``) count on every open
-    ancestor and show in ``summary()``, as ``pcg_iters`` does."""
+@pytest.mark.parametrize("span", ["insert", "opt"])
+@pytest.mark.parametrize("counter", ["graph_captures", "graph_replays"])
+def test_graph_counters_roll_up_like_pcg_iters(clock, counter, span):
+    """The CUDA-graph runner's counters count on every open ancestor and
+    show in ``summary()``, as ``pcg_iters`` does, on the span of the work
+    they replay: the surfel insert inside the LIO's ``scan``, the PCG
+    inside a feed's ``opt``; a sibling span counts none."""
+    parent = {"insert": "scan", "opt": "feed"}[span]
     p = profiling.Profiler()
-    with p.span("feed", scan=1):
-        with p.span("opt"):
+    with p.span(parent, scan=1):
+        with p.span(span):
             profiling.add(counter, 8)
             profiling.add("pcg_iters", 64)
             with profiling.sync("pcg"):
                 clock.t += 100_000
             profiling.add(counter, 8)
-        with p.span("opt"):
+        with p.span("update"):
+            pass
+        with p.span(span):
             profiling.add(counter, 1)
     rec = _by_name(p.records())
-    assert getattr(rec["feed"][0], counter) == 17
-    assert [getattr(r, counter) for r in rec["opt"]] == [16, 1]
+    assert getattr(rec[parent][0], counter) == 17
+    assert [getattr(r, counter) for r in rec[span]] == [16, 1]
     assert getattr(rec["sync.pcg"][0], counter) == 0
     s = p.summary()
-    assert s["feed"][counter] == 17 and s["opt"][counter] == 17
-    assert s["opt"]["pcg_iters"] == 64
-    assert counter not in s["sync.pcg"]
-    assert {"pcg_graph_captures", "pcg_graph_replays"} <= \
-        set(profiling.COUNTERS)
+    assert s[parent][counter] == 17 and s[span][counter] == 17
+    assert s[span]["pcg_iters"] == 64
+    assert counter not in s["sync.pcg"] and counter not in s["update"]
+    assert {"graph_captures", "graph_replays"} <= set(profiling.COUNTERS)
+    assert not [c for c in profiling.COUNTERS if "_graph_" in c]
 
 
 def test_a_solve_on_the_cpu_captures_and_replays_no_graph():
@@ -132,8 +137,8 @@ def test_a_solve_on_the_cpu_captures_and_replays_no_graph():
         pgo.optimize(g, var, var, gn_iters=2, pcg_iters=16)
     opt = p.records()[0]
     assert opt.pcg_iters > 0
-    assert opt.pcg_graph_captures == opt.pcg_graph_replays == 0
-    assert "pcg_graph_replays" not in p.summary()["opt"]
+    assert opt.graph_captures == opt.graph_replays == 0
+    assert "graph_replays" not in p.summary()["opt"]
 
 
 def test_sites_do_nothing_without_an_open_span():
@@ -208,6 +213,41 @@ def test_process_scan_is_one_scan_span_over_its_six_stages():
         assert recs[k].parent == -1
         assert recs[k].syncs == sum(r.syncs for r in kids)
     assert {"scan", *STAGES, "sync.inputs"} <= set(p.summary())
+
+
+def _scan_inputs(world, traj, i, kind):
+    """Scan i's inputs: ``numpy`` as the simulator makes them, ``tensors``
+    all as CPU tensors and no intensities, ``mixed`` numpy points, rel_t
+    and mask beside tensor IMU samples."""
+    inputs = list(sim_scan_inputs(world, traj, i, 0.2, 4 * 2048))
+    last = {"numpy": 0, "tensors": 7, "mixed": 7}[kind]
+    first = {"numpy": 0, "tensors": 0, "mixed": 3}[kind]
+    inputs[first:last] = map(torch.from_numpy, inputs[first:last])
+    return inputs
+
+
+@pytest.mark.parametrize("kind", ["tensors", "mixed"])
+def test_a_scan_sends_its_inputs_to_the_device_once_at_most(kind):
+    """Tensor inputs go to the LIO's device without a trip through the
+    host: with no numpy input (intensities left out) a scan opens no
+    ``sync.inputs``, and with some it opens one, the numpy inputs' packed
+    transfer.  The states equal those of numpy inputs bit for bit."""
+    want_p, got_p = profiling.Profiler("cpu"), profiling.Profiler("cpu")
+    lio_w, want, world, traj = _lio(want_p)
+    lio_g, got, _, _ = _lio(got_p)
+    for i in range(2):
+        want, _ = lio_w.process_scan(want, *_scan_inputs(world, traj, i,
+                                                         "numpy"))
+        got, _ = lio_g.process_scan(got, *_scan_inputs(world, traj, i, kind))
+    for p, n in ((want_p, 1), (got_p, int(kind == "mixed"))):
+        recs = p.records()
+        for k in [k for k, r in enumerate(recs) if r.name == "scan"]:
+            assert [r.name for r in recs if r.parent == k and
+                    r.name.startswith("sync.")] == ["sync.inputs"] * n
+    flat = [torch.utils._pytree.tree_leaves(s) for s in (want, got)]
+    assert len(flat[0]) == len(flat[1]) > 10
+    assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(*flat))
 
 
 def _pipe(profiler):
