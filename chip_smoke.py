@@ -87,6 +87,15 @@ script exits non-zero:
    for bit; the solve timed eager and graphed in turns, its host
    dispatches and device kernels, one block's device time and the one-hot
    loop products' share of it;
+7c. quatro_graph: Quatro's coarse solve as one CUDA graph a lane
+   (``quatro._solve`` through the runner ``quatro._SOLVE_GRAPHS``) on the
+   bench pair's matches (one attempt at the pipeline's caps) and on the
+   ``loop_batch`` lanes of one batched tick of 6: one capture, then a
+   replay a lane-solve on the tracer's counters; every lane's five outputs
+   graphed equal to eager, bit for bit; the host dispatches and host reads
+   of a lane-solve, eager and graphed; no synchronization inside a graphed
+   or an eager solve (torch's sync debug mode "error"); the lane-solve
+   timed eager and graphed in turns, a replay's device time and kernels;
 8. times every kernel and its plain version, and the library yardsticks
    (timed here, never used by the port, fp32 with TF32 off): for the kNN
    kernels ``torch.cdist``, masked, then ``min``; for K3 ``cdist``, the
@@ -1159,7 +1168,8 @@ def lane_vs_single(pipe, tick):
 @contextlib.contextmanager
 def eager_graphs():
     """Every CUDA-graph runner calls its function eagerly, as on the CPU,
-    while the context is open: the LIO's insert and the PCG's blocks."""
+    while the context is open: the LIO's insert, the PCG's blocks and
+    Quatro's solve."""
     from fast_lio_sam_qn_tpu_torch.utils import cuda_graph
 
     on_card = cuda_graph._on_card
@@ -1315,6 +1325,135 @@ def pcg_graphs(dev, card, pipe):
         f"loop products ({sc.Si.shape[0]} x {sc.Si.shape[1]} @ "
         f"{sc.Si.shape[1]} x 6) {onehot:.4f} ms, "
         f"{100 * onehot / max(it_ms, 1e-9):.1f} % of an iteration [{card}]")
+    torch.cuda.synchronize()
+
+
+def quatro_graph(dev, card, store, pipe, tick):
+    """7c: Quatro's coarse solve as one CUDA graph a lane on the bench
+    pair's matches and on the lanes of the pipeline's batched ``tick``
+    (each solve's matches recorded from its registration): the counters 1
+    capture and a replay a lane, then 0 captures; graphed = eager on every
+    lane, bit for bit; a lane-solve's host dispatches and reads, eager and
+    graphed; no synchronization in a solve; the lane-solve eager and
+    graphed in turns, a replay's device time and kernels."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fast_lio_sam_qn_tpu_torch import kernels
+    from fast_lio_sam_qn_tpu_torch.models.loop_closure import LoopClosure
+    from fast_lio_sam_qn_tpu_torch.ops import quatro
+    from fast_lio_sam_qn_tpu_torch.tools import bench_pair as bp
+    from fast_lio_sam_qn_tpu_torch.utils import profiling
+
+    calls = []
+    solve = quatro.solve
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return solve(*args, **kw)
+    quatro.solve = record
+    try:
+        LoopClosure(bp.bench_config(True), bp.PIPE_SRC_CAP,
+                    bp.PIPE_DST_CAP).fetch_and_perform(store, 1)
+        q, c, _ = tick
+        pipe.loop_closure.perform_loop_closure_batch(pipe.store, q, c)
+    finally:
+        quatro.solve = solve
+    (pair, kw), lanes = calls[0], [a for a, _ in calls[1:]]
+    batch = tuple(torch.stack(x) for x in zip(*lanes))
+    where = (f"{pair[0].shape[0]} matches (bench pair: {int(pair[2].sum())} "
+             f"valid; tick {q} -> {c}: "
+             f"{[int(v.sum()) for _, _, v in lanes]})")
+
+    def run_batch():
+        return kernels.per_lane(lambda *a: quatro.solve(*a, **kw), *batch)
+
+    quatro._SOLVE_GRAPHS.graphs.clear()
+    prof = profiling.Profiler(dev)
+    counts = []
+    for label in ("first", "second"):
+        with prof.span(label):
+            run_batch()
+        rec = next(r for r in prof.records() if r.name == label)
+        counts.append((rec.graph_captures, rec.graph_replays))
+    log(f"quatro graph: {len(lanes)}-lane solves on {where}: (captures, "
+        f"replays) {counts}")
+    want = [(1, len(lanes)), (0, len(lanes))]
+    if counts != want:
+        raise AssertionError(f"quatro graph counters {counts}, expected "
+                             f"{want}")
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    for name, args in (("bench pair", pair),
+                       *((f"tick lane {i}", a) for i, a in enumerate(lanes))):
+        graphed = quatro.solve(*args, **kw)
+        with eager_graphs():
+            eager = quatro.solve(*args, **kw)
+        bad = [f for f, x, y in zip(quatro.QuatroResult._fields, graphed,
+                                    eager) if not torch.equal(bits(x),
+                                                              bits(y))]
+        if bad:
+            raise AssertionError(f"quatro graph: {name}'s graphed solve "
+                                 f"differs from eager in {bad}")
+    with eager_graphs():
+        eager = run_batch()
+    if not all(torch.equal(bits(x), bits(y))
+               for x, y in zip(run_batch(), eager)):
+        raise AssertionError("quatro graph: the graphed batch differs")
+    log(f"quatro graph: graphed = eager, bit for bit, on the bench pair and "
+        f"the {len(lanes)} tick lanes (all five outputs); converged "
+        f"{eager.converged.tolist()}, inliers {eager.num_inliers.tolist()}")
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.reads = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.reads += func is torch.ops.aten._local_scalar_dense.default
+            return func(*args, **(kwargs or {}))
+
+    def one():
+        quatro.solve(*pair, **kw)
+
+    def one_eager():
+        with eager_graphs():
+            one()
+    seen = {}
+    for label, fn in (("eager", one_eager), ("graphed", one)):
+        with Count() as n:
+            fn()
+        seen[label] = (n.ops, n.reads)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log(f"quatro graph: a lane-solve's host dispatches (reads): eager "
+        f"{seen['eager'][0]} ({seen['eager'][1]}), graphed "
+        f"{seen['graphed'][0]} ({seen['graphed'][1]}); no synchronization "
+        f"in either under sync debug mode \"error\"")
+    if seen["graphed"][1] or seen["eager"][1] or \
+            (dev.type == "cuda" and seen["graphed"][0] > 20):
+        raise AssertionError(f"quatro graph: dispatches (reads) {seen}")
+
+    t = [cuda_ms(f) for f in (one_eager, one, one, one_eager)]
+    log(f"time quatro.solve, one lane of {pair[0].shape[0]} matches, eager "
+        f"/ graphed / graphed / eager: {t[0]:.3f} / {t[1]:.3f} / "
+        f"{t[2]:.3f} / {t[3]:.3f} ms [{card}]")
+    t = [cuda_ms(run_batch, 5) for _ in range(2)]
+    log(f"time quatro.solve over the {len(lanes)} tick lanes (per_lane, "
+        f"graphed): {t[0]:.3f} / {t[1]:.3f} ms [{card}]")
+    graph = quatro._load(*pair, **kw)
+    replay = graph.graph.replay if dev.type == "cuda" else graph
+    ms, n, top, _ = device_kernels(replay)
+    per = cuda_ms(replay, 20)
+    log(f"quatro graph: one replay {per:.4f} ms by CUDA events, {ms:.4f} ms "
+        f"in {n} kernels profiled ({1e3 * per / max(n, 1):.2f} us a "
+        f"kernel); top {top} [{card}]")
     torch.cuda.synchronize()
 
 
@@ -3473,6 +3612,7 @@ def main() -> int:
     multi = check_pipeline(pipe, gt_kf, ate_odom, ticks)
     lane_vs_single(pipe, multi[-1])
     pcg_graphs(dev, card, pipe)
+    quatro_graph(dev, card, store, pipe, multi[-1])
 
     p, m, _, srt = inputs["src"]
     sp, sm_, sn, sv = (x[0] for x in srt[:4])

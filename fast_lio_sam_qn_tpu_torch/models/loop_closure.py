@@ -192,15 +192,20 @@ class LoopClosure:
 
     def warm_batch(self, store: KeyframeStore, batch: int | None = None,
                    mesh=None):
-        """Load the kernel library (building it if missing) for a store on
-        the card, so that the first batched tick pays no build, and check
-        that a mesh of more than one rank divides the ``batch`` lanes.  The
-        reference compiles its B-lane program here; eager PyTorch has no
-        program to compile (every batch size runs the same kernels)."""
+        """Load the kernel library (building it if missing) and Quatro's
+        solve graph (``quatro.load_solve``: captured on the card) for a
+        store on the card, so that the first batched tick pays no build and
+        no capture, and check that a mesh of more than one rank divides the
+        ``batch`` lanes.  The reference compiles its B-lane program here;
+        every batch size runs the same kernels, and the solve one lane at a
+        time."""
         if batch is not None and mesh is not None and mesh.size > 1:
             mesh.shard_rows(batch)
         if store.clouds.device.type == "cuda":
             kernels.load_library()
+        if self.cfg.enable_quatro:
+            quatro.load_solve(self._max_corres(self.src_cap),
+                              store.clouds.device, **self._solve_settings())
 
     def icp_alignment(self, src, src_mask, dst, dst_mask, src_cov=None,
                       dst_cov=None, *, batched: bool):
@@ -234,6 +239,14 @@ class LoopClosure:
         if qc.use_optimized_matching:
             return qc.max_num_corres
         return min(n_src, qc.advanced_max_corres)
+
+    def _solve_settings(self) -> dict:
+        """``quatro.solve``'s settings from the config."""
+        qc = self.cfg.quatro
+        return dict(noise_bound=qc.noise_bound, gnc_factor=qc.rot_gnc_factor,
+                    cost_diff_thr=qc.rot_cost_diff_thr,
+                    rot_max_iter=qc.rot_max_iter,
+                    estimate_scale=qc.estimating_scale)
 
     def coarse_to_fine_alignment(self, src, src_mask, dst, dst_mask, src_vp,
                                  dst_vp, *, batched: bool):
@@ -281,11 +294,9 @@ class LoopClosure:
                     lambda *a: quatro.match_features(*a, **match),
                     src, ds, fs, dst, dd, fd)
         with self._span("reg.quatro"):
-            q = kernels.per_lane(lambda *a: quatro.solve(
-                *a, noise_bound=qc.noise_bound, gnc_factor=qc.rot_gnc_factor,
-                cost_diff_thr=qc.rot_cost_diff_thr,
-                rot_max_iter=qc.rot_max_iter,
-                estimate_scale=qc.estimating_scale), s, d, ok)
+            settings = self._solve_settings()
+            q = kernels.per_lane(
+                lambda *a: quatro.solve(*a, **settings), s, d, ok)
         with self._span("reg.gicp"):
             src_c = se3.transform_points(src, q.transform)
             # pure rotation for C' = R C R^T (the transform carries s R

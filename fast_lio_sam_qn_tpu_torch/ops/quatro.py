@@ -10,9 +10,17 @@ voting and a reweighted 2D Procrustes refinement.  Scalar parameters become
 
 Where the reference relies on ``lax.top_k`` / ``argsort`` tie order (index
 order among equal keys), the port sorts stably.  The reference's
-data-dependent loops become Python loops: GNC stops on the same rule with
-one host read per iteration; the sequential greedy clique pass is a loop of
-small device ops (no host reads).
+data-dependent loops become fixed Python loops of small device ops that
+read nothing on the host: the sequential greedy clique pass walks rows
+gathered once in visiting order and writes each vertex's flag through a
+one-element index tensor (indexing by a 0-d tensor reads it on the host:
+three reads a vertex), and GNC runs all ``max_iter`` iterations under a
+device flag that freezes its state once the reference's stopping rule
+holds.  Constants are filled on the device, never copied from the host.
+
+``solve`` runs one lane's coarse solve through the module's CUDA-graph
+runner ``_SOLVE_GRAPHS``: on the card one replay a call, whose outputs are
+the caller's own (clones); off the card the same function, eagerly.
 """
 from __future__ import annotations
 
@@ -20,7 +28,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import cuda_graph
 from . import knn_cuda, se3
+
+# the coarse solve's graphs, one a key (the matches' shape and the settings)
+_SOLVE_GRAPHS = cuda_graph.Runner()
 
 
 class QuatroResult(NamedTuple):
@@ -32,7 +44,14 @@ class QuatroResult(NamedTuple):
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """``x`` as a 0-d fp32 tensor on ``like``'s device, filled there (no
+    copy from the host)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor ``i``, selected on the device."""
+    return x.index_select(0, i.reshape(1))[0]
 
 
 def _select_matches(src_pts, dst_pts, d2_sd, idx_sd, v_sd, idx_ds,
@@ -100,7 +119,10 @@ def max_clique_inliers(s_pts, d_pts, valid, noise_bound, iters: int = 64,
     | |s_i - s_j| - |d_i - d_j| | <= 2 noise_bound: replicator dynamics,
     then a greedy pass in descending support order over at most
     ``greedy_cap`` vertices that keeps a vertex only if it is compatible
-    with every vertex kept before it.  Returns the inlier mask (C,)."""
+    with every vertex kept before it: four device ops a vertex, on rows
+    gathered in visiting order, the flag written through a one-element
+    index (no host read; a vertex never visited is never kept).  Returns
+    the inlier mask (C,)."""
     c = s_pts.shape[0]
     dev = s_pts.device
     nb = _f32(noise_bound, s_pts)
@@ -117,25 +139,17 @@ def max_clique_inliers(s_pts, d_pts, valid, noise_bound, iters: int = 64,
         num = x * (A @ x)
         x = num / torch.clamp(torch.sum(num), min=1e-12)
 
-    if c <= greedy_cap:
-        order = torch.sort(-x, stable=True).indices
-        A_bool = A > 0.5
-        kept = torch.zeros(c, dtype=torch.bool, device=dev)
-        for i in range(c):
-            v = order[i]
-            kept[v] = valid[v] & torch.all(torch.where(kept, A_bool[v], True))
-        return kept
-
-    topi = torch.sort(x, descending=True, stable=True).indices[:greedy_cap]
-    A_sub = A[topi][:, topi] > 0.5
-    valid_k = valid[topi]
-    kept_k = torch.zeros(greedy_cap, dtype=torch.bool, device=dev)
-    for i in range(greedy_cap):
-        kept_k[i] = valid_k[i] & torch.all(
-            torch.where(kept_k, A_sub[i], True))
-    out = torch.zeros(c, dtype=torch.bool, device=dev)
-    out[topi] = kept_k
-    return out
+    # the walk: the first ``greedy_cap`` vertices in descending support
+    # (stable), their rows and flags gathered once in visiting order
+    order = torch.sort(-x, stable=True).indices[:greedy_cap]
+    A_ord = (A > 0.5).index_select(0, order)
+    valid_ord = valid.index_select(0, order)
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    kept = torch.zeros(c, dtype=torch.bool, device=dev)
+    for i in range(order.shape[0]):
+        ok = valid_ord[i] & torch.all(torch.where(kept, A_ord[i], true))
+        kept.index_put_((order[i:i + 1],), ok)
+    return kept
 
 
 def _ring_tims(s_pts, d_pts, inliers, strides):
@@ -162,7 +176,11 @@ def _ring_tims(s_pts, d_pts, inliers, strides):
 def gnc_rotation_yaw(s_pts, d_pts, inliers, noise_bound, gnc_factor,
                      cost_diff_thr, max_iter: int = 50):
     """GNC-TLS yaw from ring TIMs (strides 1 and 2) over the clique.
-    Returns (yaw, inlier_weights, converged)."""
+    The reference stops once the cost moves by less than ``cost_diff_thr``;
+    here every one of the ``max_iter`` iterations runs, and a device flag
+    ``live`` keeps the state (yaw, weights, mu, the previous cost) of the
+    iteration that met the rule, so the result is the early stop's, bit for
+    bit, with no host read.  Returns (yaw, inlier_weights, converged)."""
     v, w, m = _ring_tims(s_pts, d_pts, inliers, (1, 2))
     v, w = v[:, :2], w[:, :2]
     m = m & (torch.linalg.norm(v, dim=-1) > 1e-3)
@@ -171,10 +189,14 @@ def gnc_rotation_yaw(s_pts, d_pts, inliers, noise_bound, gnc_factor,
     cost_diff_thr = _f32(cost_diff_thr, s_pts)
     cbar2 = (2.0 * nb) ** 2
 
+    # the weight-free products of the yaw's closed form, and the constants
+    # of the loop, made once
+    vw_dot = v[:, 0] * w[:, 0] + v[:, 1] * w[:, 1]
+    vw_cross = v[:, 0] * w[:, 1] - v[:, 1] * w[:, 0]
+    zero, one = _f32(0.0, s_pts), _f32(1.0, s_pts)
+
     def yaw_solve(wt):
-        a = torch.sum(wt * (v[:, 0] * w[:, 0] + v[:, 1] * w[:, 1]))
-        b = torch.sum(wt * (v[:, 0] * w[:, 1] - v[:, 1] * w[:, 0]))
-        return torch.atan2(b, a)
+        return torch.atan2(torch.sum(wt * vw_cross), torch.sum(wt * vw_dot))
 
     def residual2(yaw):
         cy, sy = torch.cos(yaw), torch.sin(yaw)
@@ -185,27 +207,34 @@ def gnc_rotation_yaw(s_pts, d_pts, inliers, noise_bound, gnc_factor,
     mf = m.to(torch.float32)
     wt = mf
     yaw = yaw_solve(wt)
-    r2_max = torch.max(torch.where(m, residual2(yaw), 0.0))
+    # the residuals of the current yaw, carried from the cost that computed
+    # them: an iteration's first residuals are its predecessor's last
+    r2 = residual2(yaw)
+    r2_max = torch.max(torch.where(m, r2, zero))
     mu = torch.clamp(cbar2 / torch.clamp(2.0 * r2_max - cbar2, min=1e-9),
                      min=1e-6)
     cost_prev = _f32(torch.inf, s_pts)
+    live = torch.ones((), dtype=torch.bool, device=s_pts.device)
     for _ in range(max_iter):
-        r2 = residual2(yaw)
-        ub = (mu + 1.0) / mu * cbar2
-        lb = mu / (mu + 1.0) * cbar2
-        wt = torch.where(
-            r2 >= ub, 0.0,
-            torch.where(r2 <= lb, 1.0,
-                        torch.sqrt(cbar2 * mu * (mu + 1.0)
+        mu1 = mu + 1.0
+        ub = mu1 / mu * cbar2
+        lb = mu / mu1 * cbar2
+        wt_new = torch.where(
+            r2 >= ub, zero,
+            torch.where(r2 <= lb, one,
+                        torch.sqrt(cbar2 * mu * mu1
                                    / torch.clamp(r2, min=1e-12)) - mu))
-        wt = torch.clamp(wt, 0.0, 1.0) * mf
-        yaw = yaw_solve(wt)
-        cost = torch.sum(wt * torch.minimum(residual2(yaw), cbar2))
-        done = bool(torch.abs(cost - cost_prev) < cost_diff_thr)
-        mu = mu * gnc_factor
-        cost_prev = cost
-        if done:
-            break
+        wt_new = torch.clamp(wt_new, 0.0, 1.0) * mf
+        yaw_new = yaw_solve(wt_new)
+        r2 = residual2(yaw_new)
+        cost = torch.sum(wt_new * torch.minimum(r2, cbar2))
+        done = torch.abs(cost - cost_prev) < cost_diff_thr
+        # after the stop nothing moves: later iterations compute and discard
+        wt = torch.where(live, wt_new, wt)
+        yaw = torch.where(live, yaw_new, yaw)
+        mu = torch.where(live, mu * gnc_factor, mu)
+        cost_prev = torch.where(live, cost, cost_prev)
+        live = live & ~done
     converged = torch.sum(wt > 0.5) >= 3
     return yaw, wt, converged
 
@@ -229,9 +258,9 @@ def translation_voting(s_pts, d_pts, inliers, yaw, noise_bound):
         within = within & m[None, :] & m[:, None]
         counts = torch.sum(within, dim=1)
         best = torch.argmax(counts)
-        sel = within[best]
+        sel = _row(within, best)
         return (torch.sum(torch.where(sel, vals, 0.0))
-                / torch.clamp(torch.sum(sel), min=1), counts[best])
+                / torch.clamp(torch.sum(sel), min=1), _row(counts, best))
 
     tx, cx = per_axis(cand[:, 0])
     ty, cy = per_axis(cand[:, 1])
@@ -257,8 +286,8 @@ def estimate_scale_tims(s_pts, d_pts, inliers, noise_bound):
     within = within & m[:, None] & m[None, :]
     counts = torch.sum(within, dim=1)
     best = torch.argmax(counts)
-    sel = within[best]
-    n_votes = counts[best]
+    sel = _row(within, best)
+    n_votes = _row(counts, best)
     scale = torch.sum(torch.where(sel, ratio, 0.0)) / torch.clamp(
         torch.sum(sel), min=1)
     scale = torch.clamp(scale, 0.05, 20.0)
@@ -312,7 +341,37 @@ def solve(s, d, valid, *, noise_bound, gnc_factor, cost_diff_thr,
           ) -> QuatroResult:
     """Quatro on one cloud pair's matches (s, d, valid): clique, GNC yaw,
     translation voting and refinement.  The batched registration runs this
-    lane by lane after one batched matching pass."""
+    lane by lane after one batched matching pass.  On the card one replay
+    of the key's CUDA graph (captured on its first load), whose outputs
+    the caller owns."""
+    return _load(s, d, valid, noise_bound=noise_bound, gnc_factor=gnc_factor,
+                 cost_diff_thr=cost_diff_thr, rot_max_iter=rot_max_iter,
+                 estimate_scale=estimate_scale)()
+
+
+def load_solve(max_corres: int, device, *, noise_bound, gnc_factor,
+               cost_diff_thr, rot_max_iter: int = 50,
+               estimate_scale: bool = False) -> None:
+    """Load ``solve``'s graph for ``max_corres`` matches on ``device`` with
+    these settings, on zero matches: on the card the key's capture, so that
+    the first solve replays."""
+    z = torch.zeros(max_corres, 3, device=device)
+    _load(z, z, torch.zeros(max_corres, dtype=torch.bool, device=device),
+          noise_bound=noise_bound, gnc_factor=gnc_factor,
+          cost_diff_thr=cost_diff_thr, rot_max_iter=rot_max_iter,
+          estimate_scale=estimate_scale)
+
+
+def _load(s, d, valid, *, noise_bound, gnc_factor, cost_diff_thr,
+          rot_max_iter, estimate_scale) -> cuda_graph.Graph:
+    return _SOLVE_GRAPHS.load(_solve, s, d, valid, noise_bound, gnc_factor,
+                              cost_diff_thr, rot_max_iter, estimate_scale)
+
+
+def _solve(s, d, valid, noise_bound, gnc_factor, cost_diff_thr,
+           rot_max_iter, estimate_scale) -> QuatroResult:
+    """``solve``'s work: no host read, every constant filled on the
+    device."""
     if estimate_scale:
         # scale first, over all matches; the clique runs de-scaled
         scale, _ = estimate_scale_tims(s, d, valid, noise_bound)
@@ -325,7 +384,9 @@ def solve(s, d, valid, *, noise_bound, gnc_factor, cost_diff_thr,
                                       cost_diff_thr, max_iter=rot_max_iter)
     t, t_votes = translation_voting(s_eff, d, inl, yaw, noise_bound)
     yaw, t = refine_yaw_translation(s_eff, d, inl, yaw, t, noise_bound)
-    R = se3.so3_exp(torch.tensor([0.0, 0.0, 1.0], device=s.device) * yaw)
+    e_z = torch.zeros(3, device=s.device)
+    e_z[2:].fill_(1.0)
+    R = se3.so3_exp(e_z * yaw)
     T = se3.make_pose(R * scale, t)
     n_inl = torch.sum(inl)
     converged = rot_ok & (n_inl >= 3) & (t_votes >= 2)

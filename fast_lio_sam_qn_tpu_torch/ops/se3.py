@@ -12,8 +12,6 @@ import math
 
 import torch
 
-from ..utils import profiling
-
 _EPS = 1e-8
 
 
@@ -131,10 +129,9 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    with profiling.sync("make_pose"):     # a copy from host memory
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                              device=R.device).expand(batch + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
+    bottom = R.new_zeros((1, 4))        # [0, 0, 0, 1], filled on the device
+    bottom[:, 3:].fill_(1.0)
+    return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 
 def split_pose(T: torch.Tensor):

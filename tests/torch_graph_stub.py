@@ -1,13 +1,13 @@
 """The port's CUDA-graph runner (``fast_lio_sam_qn_tpu_torch/utils/
 cuda_graph.py``) on the CPU as it runs on the card, for the tests of the
-runner, the surfel insert's graph and the PCG's blocks: ``cpu_as_card``
-and the fixture ``card_graphs``."""
+runner, the surfel insert's graph, the PCG's blocks and Quatro's coarse
+solve: ``cpu_as_card`` and the fixture ``card_graphs``."""
 from types import SimpleNamespace
 
 import pytest
 
 from fast_lio_sam_qn_tpu_torch.models import lio
-from fast_lio_sam_qn_tpu_torch.ops import pgo
+from fast_lio_sam_qn_tpu_torch.ops import pgo, quatro
 from fast_lio_sam_qn_tpu_torch.utils import cuda_graph
 
 
@@ -16,8 +16,8 @@ def cpu_as_card(monkeypatch):
     makes its buffers and "captures", which runs the function once (the
     warm-up) and returns a stand-in whose replay runs it again on the
     buffers, as a replay runs the captured kernels on them.  The LIO's
-    insert and the pose-graph solve get fresh runners, so that no graph
-    outlives the test."""
+    insert, the pose-graph solve and Quatro's solve get fresh runners, so
+    that no graph outlives the test."""
     def capture(fn, device):
         fn()
         return SimpleNamespace(replay=fn)
@@ -27,6 +27,7 @@ def cpu_as_card(monkeypatch):
         tensors) and all(t.device.type == "cpu" for t in tensors))
     monkeypatch.setattr(lio, "_INSERT_GRAPHS", cuda_graph.Runner())
     monkeypatch.setattr(pgo, "_PCG_GRAPHS", cuda_graph.Runner())
+    monkeypatch.setattr(quatro, "_SOLVE_GRAPHS", cuda_graph.Runner())
 
 
 @pytest.fixture
