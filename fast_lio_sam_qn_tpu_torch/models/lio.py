@@ -21,6 +21,7 @@ the same bits as the eager insert that the CPU runs.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..utils import cuda_graph, profiling
 from ..utils.config import LioConfig
 
 _MEAS_VAR = 0.0025     # lidar point-to-plane noise variance (m^2)
+ASSOC_WINDOW = 3       # the point map's plane search: the 3^3 voxel window
 # the surfel insert's graphs, one a map and scan width, shared by every LIO
 _INSERT_GRAPHS = cuda_graph.Runner()
 
@@ -67,7 +69,11 @@ class LIO:
     step.  ``profiler`` (optional: ``utils.profiling.Profiler``, or any
     object with a ``span(name)`` context manager) gets the span ``scan``
     around ``process_scan`` and, inside it, one around each stage:
-    preprocess, propagate, deskew, update, evict, insert."""
+    preprocess, propagate, deskew, update, evict, insert.  On the point
+    map, ``update`` holds one span ``assoc`` a plane search
+    (``max_iteration`` + 1 a scan after the first), whose counter
+    ``assoc_rows`` is the padded rows times the candidate slots each
+    gathers."""
 
     def __init__(self, cfg: Optional[LioConfig] = None, imu_cap: int = 64,
                  device: torch.device | str = "cuda", profiler=None):
@@ -91,6 +97,15 @@ class LIO:
 
     def _span(self, name: str, scan=None):
         return profiling.span(self.profiler, name, scan)
+
+    @contextlib.contextmanager
+    def _assoc(self):
+        """The span ``assoc`` around one plane search of the point map's
+        update, counting its gathered slots (host values, no read)."""
+        with self._span("assoc"):
+            profiling.add("assoc_rows", self.cfg.max_points_per_scan
+                          * ASSOC_WINDOW ** 3 * hashgrid.NUM_PROBES)
+            yield
 
     # ------------------------------------------------------------------
     def init_state(self, gravity_dir=None, gyro_bias=None,
@@ -244,7 +259,8 @@ class LIO:
         kw = dict(meas_var=_f32(_MEAS_VAR), max_iter=c.max_iteration)
         if c.map_backend == "point":
             kw.update(plane_threshold=_f32(c.plane_threshold),
-                      plane_k=c.plane_k, window=3)
+                      plane_k=c.plane_k, window=ASSOC_WINDOW,
+                      span=self._assoc)
         else:
             kw.update(window=c.surfel_query_window)
         first = state.scans == 0

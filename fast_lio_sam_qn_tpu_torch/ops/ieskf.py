@@ -25,6 +25,7 @@ the card), as the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -440,17 +441,20 @@ def _plane_correspondences(grid: hashgrid.HashGrid, pts_w, mask, plane_k: int,
 
 def update(state: NavState, P, grid: hashgrid.HashGrid, pts_b, mask,
            meas_var: float, plane_threshold: float, max_iter: int = 3,
-           plane_k: int = 5, window: int = 3):
+           plane_k: int = 5, window: int = 3, span=contextlib.nullcontext):
     """Iterated point-to-plane MAP update against the point map: the plane
     correspondences are searched again at every Gauss-Newton step, and once
     more at the converged state for the posterior covariance and the match
-    count.  Returns (state, P, num_matches)."""
+    count.  ``span()`` is entered around each search (the LIO's ``assoc``
+    span).  Returns (state, P, num_matches)."""
     eye = torch.eye(STATE_DIM, dtype=P.dtype, device=P.device)
     Pinv = torch.linalg.inv_ex(P + 1e-9 * eye)[0]
 
     def associate(s):
-        return _plane_correspondences(grid, _ptransform(pts_b, s.R, s.p),
-                                      mask, plane_k, plane_threshold, window)
+        with span():
+            return _plane_correspondences(
+                grid, _ptransform(pts_b, s.R, s.p), mask, plane_k,
+                plane_threshold, window)
 
     s = state
     dx_acc = torch.zeros(STATE_DIM, dtype=P.dtype, device=P.device)
@@ -556,10 +560,13 @@ def update_surfel_ext(state: NavState, ext: Extrinsic, P,
 
 def update_ext(state: NavState, ext: Extrinsic, P, grid: hashgrid.HashGrid,
                pts_l, mask, meas_var: float, plane_threshold: float,
-               max_iter: int = 3, plane_k: int = 5, window: int = 3):
+               max_iter: int = 3, plane_k: int = 5, window: int = 3,
+               span=contextlib.nullcontext):
     """``update`` (the point map) with the extrinsic co-estimated.
     Returns (state, ext, P, num_matches)."""
-    return _update_ext(
-        state, ext, P, pts_l, meas_var, max_iter,
-        lambda p_w: _plane_correspondences(grid, p_w, mask, plane_k,
-                                           plane_threshold, window))
+    def associate(p_w):
+        with span():
+            return _plane_correspondences(grid, p_w, mask, plane_k,
+                                          plane_threshold, window)
+
+    return _update_ext(state, ext, P, pts_l, meas_var, max_iter, associate)

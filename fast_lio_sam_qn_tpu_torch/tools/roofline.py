@@ -19,6 +19,8 @@ pairs, the FPFH kernels' in-radius pairs) the count is this run's.
   work of the kernel as designed (``bound_ms``) and the in-radius work of
   any implementation (``pair_bound_ms``, the kernel table's bound).
 - ``gicp_nn_budget``: K2's work per GICP iteration, unpruned.
+- ``plane_assoc_budget``: one plane search of the point map
+  (``ieskf._plane_correspondences``) at a scan's static sizes.
 - ``insert_budget``: a census of ``ops/surfel_map.py insert`` at steady
   state: its table-scale gathers, scatters, sorts and passes, and the
   plane fits' elementwise ops.
@@ -93,6 +95,30 @@ EIGH3_FLOPS = 18 * (53 + 3) + 9
 def eigh3_bound(n):
     """K6's bound on n matrices (``bound``)."""
     return bound(n * EIGH3_FLOPS, n * EIGH3_BYTES)
+
+
+# the point map's plane search (``ieskf._plane_correspondences``): a table
+# slot read is its key (3 int32), occupied flag and point (3 fp32); a row
+# comes in as its world point and mask and goes out as its plane's normal,
+# residual and flag; a candidate's squared distance is 3 differences, 3
+# products and 2 sums
+ASSOC_SLOT_BYTES = 12 + 1 + 12
+ASSOC_ROW_BYTES = (12 + 1) + (12 + 4 + 1)
+D2_FLOPS = 8
+
+
+def plane_assoc_budget(n, t, window=3, probes=4):
+    """The least time of one plane search of the point map, whatever
+    implements it, at its static sizes: n padded rows on a table of t
+    slots.  Bytes: each row's window^3 voxels' probe slots, the table read
+    at most once, plus the rows in and the planes out; operations: a
+    squared distance a candidate slot and one K6 fit a row (``EIGH3_FLOPS``
+    of ``eigh3_bound``).  Returns {bytes, flops, bound_ms, bound_by}."""
+    slots = n * window ** 3 * probes
+    nbytes = min(slots, t) * ASSOC_SLOT_BYTES + n * ASSOC_ROW_BYTES
+    flops = slots * D2_FLOPS + n * EIGH3_FLOPS
+    ms, by = bound(flops, nbytes)
+    return dict(bytes=nbytes, flops=flops, bound_ms=ms, bound_by=by)
 
 
 def propagate_bound(dim, k, n_steps):

@@ -25,8 +25,11 @@ those of its children:
   candidate), ``reg_valid`` (of those, the valid ones), ``loop_commits``
   (loop factors added to the graph), ``gicp_iters`` (Gauss-Newton passes
   of the GICP loops, one a pass over all lanes) and ``gn_steps`` (the
-  pose-graph solves' Gauss-Newton steps, 2 or 5 a solve).  Each is known
-  on the host where it is added: none costs a read.
+  pose-graph solves' Gauss-Newton steps, 2 or 5 a solve);
+- ``assoc_rows``: on the point map's span ``assoc``, one plane search's
+  padded rows times the candidate slots each gathers.
+
+Each counter is known on the host where it is added: none costs a read.
 
 The op-level sites (``sync``, ``add``) have no profiler handle: they reach
 the profiler whose span is open through one module-level slot that
@@ -54,7 +57,7 @@ SYNC = "sync."          # the prefix of a host read's span
 ANCHOR = "profiling.anchor"
 COUNTERS = ("syncs", "sync_wait_ms", "pcg_iters", "graph_captures",
             "graph_replays", "reg_lanes", "reg_valid", "loop_commits",
-            "gicp_iters", "gn_steps")
+            "gicp_iters", "gn_steps", "assoc_rows")
 
 
 @dataclass
@@ -91,6 +94,7 @@ class Record:
     loop_commits: int = 0
     gicp_iters: int = 0
     gn_steps: int = 0
+    assoc_rows: int = 0
 
     @property
     def host_ms(self) -> float:
